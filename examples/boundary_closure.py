@@ -10,7 +10,7 @@ _sys.path.insert(0, _os.path.join(_os.path.dirname(_os.path.abspath(__file__)), 
 
 import numpy as np
 
-from ferreus_rbf_tpu.isosurfacing import BoundaryClosure, ClusterMethod, build_isosurface
+from ferreus_rbf.isosurfacing import BoundaryClosure, ClusterMethod, build_isosurface
 
 
 def sphere_sdf(pts):

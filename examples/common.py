@@ -15,7 +15,7 @@ ALBATITE_CSV = os.environ.get(
 
 
 def load_albatite():
-    from ferreus_rbf_tpu import csv_to_point_arrays
+    from ferreus_rbf import csv_to_point_arrays
 
     if os.path.exists(ALBATITE_CSV):
         pts, vals = csv_to_point_arrays(ALBATITE_CSV, has_headers=True)

@@ -10,8 +10,8 @@ _sys.path.insert(0, _os.path.join(_os.path.dirname(_os.path.abspath(__file__)), 
 
 import numpy as np
 
-import ferreus_rbf_tpu as frt
-from ferreus_rbf_tpu.isosurfacing import BoundaryClosure, ClusterMethod, build_isosurface
+import ferreus_rbf as frt
+from ferreus_rbf.isosurfacing import BoundaryClosure, ClusterMethod, build_isosurface
 from common import load_albatite
 
 

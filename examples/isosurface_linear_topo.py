@@ -12,7 +12,7 @@ _sys.path.insert(0, _os.path.join(_os.path.dirname(_os.path.abspath(__file__)), 
 
 import numpy as np
 
-import ferreus_rbf_tpu as frt
+import ferreus_rbf as frt
 from common import load_albatite
 
 

@@ -1,4 +1,4 @@
-"""ferreus_rbf_tpu: TPU-native fast global RBF interpolation.
+"""ferreus_rbf: TPU-native fast global RBF interpolation.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 ``graphic-goose/ferreus_rbf_rs`` (Rust reference): O(N log N) black-box fast
@@ -35,8 +35,8 @@ _jax.config.update("jax_default_matmul_precision", "highest")
 # expensive on TPU backends; caching them on disk makes every process after
 # the first start warm.
 _cache_dir = _os.environ.get(
-    "FERREUS_RBF_TPU_JAX_CACHE",
-    _os.path.expanduser("~/.cache/ferreus_rbf_tpu_jax"),
+    "FERREUS_RBF_JAX_CACHE",
+    _os.path.expanduser("~/.cache/ferreus_rbf_jax"),
 )
 try:
     _os.makedirs(_cache_dir, exist_ok=True)

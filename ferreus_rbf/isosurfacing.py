@@ -2,7 +2,7 @@
 
 Mirrors the ``ferreus_rbf.isosurfacing`` submodule of the reference bindings
 (``py_ferreus_rbf/src/lib.rs``, ``ferreus_rmt/src/lib.rs:127-131``). The
-extraction engine itself lives in ``ferreus_rbf_tpu.rmt``.
+extraction engine itself lives in ``ferreus_rbf.rmt``.
 """
 
 from __future__ import annotations
@@ -62,7 +62,7 @@ class Mesh:
     def save_obj(self, path: str) -> None:
         """Write a Wavefront OBJ file (1-based vertex indices)."""
         with open(path, "w") as fh:
-            fh.write("# ferreus_rbf_tpu mesh\n")
+            fh.write("# ferreus_rbf mesh\n")
             for v in self.vertices:
                 fh.write(f"v {v[0]} {v[1]} {v[2]}\n")
             for f in self.facets:

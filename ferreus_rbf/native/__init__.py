@@ -6,7 +6,7 @@ that neither vectorises nor jits: currently the octree interaction-list
 builder. The shared library is compiled on first use with the system g++
 and cached next to the source; everything degrades gracefully to the numpy
 implementation when no compiler is available
-(set ``FERREUS_RBF_TPU_NATIVE=0`` to force the fallback).
+(set ``FERREUS_RBF_NATIVE=0`` to force the fallback).
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ def _load():
         if _TRIED:
             return _LIB
         _TRIED = True
-        if os.environ.get("FERREUS_RBF_TPU_NATIVE", "1") == "0":
+        if os.environ.get("FERREUS_RBF_NATIVE", "1") == "0":
             return None
         if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
             if not _compile():

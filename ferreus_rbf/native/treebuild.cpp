@@ -1,7 +1,7 @@
 // Native octree interaction-list builder.
 //
 // The adaptive u/v/w/x interaction lists (definitions as documented in
-// ferreus_rbf_tpu/ops/fmm/tree.py, matching the reference's adaptive FMM
+// ferreus_rbf/ops/fmm/tree.py, matching the reference's adaptive FMM
 // lists) are pure integer combinatorics over the cell table — the one
 // setup-time piece that doesn't vectorise cleanly. This native
 // implementation walks the same neighbour/frontier logic with open-address

@@ -37,8 +37,8 @@ import numpy as np
 @functools.lru_cache(maxsize=1)
 def _part_budget_bytes() -> int:
     """Max bytes for one ozaki plane-product partial before the free axis
-    is chunked (``FERREUS_RBF_TPU_OZAKI_BYTES``, default 768 MB)."""
-    return int(float(os.environ.get("FERREUS_RBF_TPU_OZAKI_BYTES", 768e6)))
+    is chunked (``FERREUS_RBF_OZAKI_BYTES``, default 768 MB)."""
+    return int(float(os.environ.get("FERREUS_RBF_OZAKI_BYTES", 768e6)))
 
 _SPLIT = np.float32(4097.0)  # 2^12 + 1: Dekker split constant for f32
 

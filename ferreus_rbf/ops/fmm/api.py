@@ -50,11 +50,11 @@ import os as _os
 # scripts/p2p_df64_bench.py); keep=5 drops one stacked dot + one slice plane
 # for ~2e-13 — both far below the 1e-8 interpolant-match goal (BASELINE.md).
 try:
-    _DF64_KEEP = int(_os.environ.get("FERREUS_RBF_TPU_DF64_KEEP", "5"))
+    _DF64_KEEP = int(_os.environ.get("FERREUS_RBF_DF64_KEEP", "5"))
 except ValueError as _e:
     raise ValueError(
-        "FERREUS_RBF_TPU_DF64_KEEP must be an integer >= 1 (number of df64 "
-        f"split-dot diagonals to keep), got {_os.environ['FERREUS_RBF_TPU_DF64_KEEP']!r}"
+        "FERREUS_RBF_DF64_KEEP must be an integer >= 1 (number of df64 "
+        f"split-dot diagonals to keep), got {_os.environ['FERREUS_RBF_DF64_KEEP']!r}"
     ) from _e
 _DF64_KEEP = max(1, _DF64_KEEP)
 
@@ -63,8 +63,8 @@ _DF64_KEEP = max(1, _DF64_KEEP)
 def _zall_budget_bytes() -> int:
     """Max bytes for a level's df64 M2L rank pre-compression table before
     that level falls back to the slot-chunked two-step path
-    (``FERREUS_RBF_TPU_ZALL_BYTES``, default 1.25 GB)."""
-    return int(float(_os.environ.get("FERREUS_RBF_TPU_ZALL_BYTES", 1.25e9)))
+    (``FERREUS_RBF_ZALL_BYTES``, default 1.25 GB)."""
+    return int(float(_os.environ.get("FERREUS_RBF_ZALL_BYTES", 1.25e9)))
 
 
 def _far_keep_for(prec: str) -> int:
@@ -91,9 +91,9 @@ def _f64_grade_prec(epsilon: float) -> str:
     ~2^-8k of the leading product, so
         k_far = ceil((log2(1/epsilon) + log2(100)) / 8),  clamped [3, KEEP].
     eps 1e-5 -> 3, 1e-7 -> 4, 1e-9 -> 5. Override with
-    ``FERREUS_RBF_TPU_FAR_KEEP`` ("full" or an integer dial).
+    ``FERREUS_RBF_FAR_KEEP`` ("full" or an integer dial).
     """
-    env = _os.environ.get("FERREUS_RBF_TPU_FAR_KEEP")
+    env = _os.environ.get("FERREUS_RBF_FAR_KEEP")
     if env is not None:
         if env == "full":
             return "df64"
@@ -158,13 +158,13 @@ def _chunk_m2l_level(u_stack, vt_stack, src_tab, level_cells, nnodes,
 def _pallas_default() -> bool:
     """Use the fused Pallas near-field kernel on TPU backends.
 
-    Env override ``FERREUS_RBF_TPU_PALLAS=0/1``. Only the f32 no-gradient
+    Env override ``FERREUS_RBF_PALLAS=0/1``. Only the f32 no-gradient
     inner-matvec path is affected; f64 and gradient paths always use the
     XLA scan.
     """
     import os
 
-    env = os.environ.get("FERREUS_RBF_TPU_PALLAS")
+    env = os.environ.get("FERREUS_RBF_PALLAS")
     if env is not None:
         return env not in ("0", "false", "False")
     try:
@@ -1743,7 +1743,7 @@ class FmmTree:
         nt_bytes = (nw + 1) * 8 * s_node * 4 * 2
         self._m2p_tiles_gated = False
         if nw and nt_bytes > int(float(_os.environ.get(
-                "FERREUS_RBF_TPU_NODETILE_BYTES", 1.5e9))):
+                "FERREUS_RBF_NODETILE_BYTES", 1.5e9))):
             nw = 0
             self._m2p_tiles_gated = True
         self._m2p_nw = nw
@@ -2189,7 +2189,7 @@ class FmmTree:
         inner mode of the mixed-precision refined solver. ``precision="f64"``
         is bit-exact f64 on CPU backends; on TPU backends it routes to the
         df64 split-precision tier (~1e-13 relative — see docs/precision.md).
-        Set ``FERREUS_RBF_TPU_PALLAS=0`` to force true f64 end to end.
+        Set ``FERREUS_RBF_PALLAS=0`` to force true f64 end to end.
         """
         binned = self._target_cache[reuse_key]
         if precision == "f64":

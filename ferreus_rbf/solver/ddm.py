@@ -272,11 +272,11 @@ class DDMTree:
         shrink left EVERY level with ~128-point domains at >= 2M points
         and the measured first-iteration contraction collapsed (60k:
         ~200x, 1M: ~6x, 2.5M: 1.06x — stagnation). Env override
-        FERREUS_RBF_TPU_DDM_MEM_GB scales the budget.
+        FERREUS_RBF_DDM_MEM_GB scales the budget.
         """
         import os
 
-        budget = float(os.environ.get("FERREUS_RBF_TPU_DDM_MEM_GB", "5.0")) * 1e9
+        budget = float(os.environ.get("FERREUS_RBF_DDM_MEM_GB", "5.0")) * 1e9
         bytes_per = 4 if self.factor_dtype == jnp.float32 else 8
         q2 = (1.0 + self.params.overlap_quota) ** 2
         # this level's share: 40% of the budget (levels shrink by
@@ -288,9 +288,9 @@ class DDMTree:
         # stalled (floor-sized leaves collapse the multilevel contraction)
         # — keep FULL-strength leaves and rebuild the level's factors per
         # application instead of storing them (_factor_solve_bucket).
-        # FERREUS_RBF_TPU_DDM_RECOMPUTE=0 restores shrink-to-fit; =1 forces
+        # FERREUS_RBF_DDM_RECOMPUTE=0 restores shrink-to-fit; =1 forces
         # recompute whenever the cap falls below the user leaf.
-        rc_env = os.environ.get("FERREUS_RBF_TPU_DDM_RECOMPUTE", "auto")
+        rc_env = os.environ.get("FERREUS_RBF_DDM_RECOMPUTE", "auto")
         if rc_env not in ("0", "false", "False") and (
             cap < min(128, leaf)
             or (rc_env in ("1", "true", "True") and cap < leaf)

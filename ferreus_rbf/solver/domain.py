@@ -11,7 +11,7 @@ procedure at ``domain.rs:153-383``.
 Host/device split (TPU-first): all pivoted-QR combinatorics and the one-off
 Cholesky factorisations run here on the host in f64 numpy/scipy — they happen
 once per fit. The *per-iteration* solves are then executed on-device in
-batched, padded form by ``ferreus_rbf_tpu.solver.schwarz`` which extracts the
+batched, padded form by ``ferreus_rbf.solver.schwarz`` which extracts the
 factors assembled here; ``Domain.solve`` remains as the host reference path
 (used by the naive direct fit and by equivalence tests).
 """

@@ -167,12 +167,12 @@ def iterative_fit(rbfi):
 
     # Device-resident restart cycles (lax.while_loop inner loop, one host
     # transfer per restart) whenever the whole preconditioner is traceable;
-    # env override FERREUS_RBF_TPU_FUSED=0 keeps the per-iteration host loop.
+    # env override FERREUS_RBF_FUSED=0 keeps the per-iteration host loop.
     import os
 
     fs = None
     if params.solver_type == Solvers.FGMRES and os.environ.get(
-        "FERREUS_RBF_TPU_FUSED", "1"
+        "FERREUS_RBF_FUSED", "1"
     ) not in ("0", "false", "False"):
         from . import fused as fused_mod
 

@@ -94,14 +94,14 @@ def record_event(name: str, payload: dict) -> None:
         tracer.events.append({"event": name, **payload})
 
 
-_TRACE_PRINT = os.environ.get("FERREUS_RBF_TPU_TRACE_PRINT", "") not in ("", "0")
+_TRACE_PRINT = os.environ.get("FERREUS_RBF_TRACE_PRINT", "") not in ("", "0")
 
 
 @contextlib.contextmanager
 def traced_stage(name: str):
     """Record into the global tracer when enabled; no-op otherwise.
 
-    ``FERREUS_RBF_TPU_TRACE_PRINT=1`` additionally prints stage enter/exit
+    ``FERREUS_RBF_TRACE_PRINT=1`` additionally prints stage enter/exit
     with wall-clock to stderr — live visibility into long setups (the
     tracer totals only become readable after the stage returns)."""
     if _TRACE_PRINT:

@@ -27,8 +27,8 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 import sys, numpy as np
 sys.path.insert(0, {ROOT!r})
-from ferreus_rbf_tpu.ops.fmm.api import FmmTree
-from ferreus_rbf_tpu.ops.kernels import KernelParams, KernelType
+from ferreus_rbf.ops.fmm.api import FmmTree
+from ferreus_rbf.ops.kernels import KernelParams, KernelType
 rng = np.random.default_rng({seed})
 pts = rng.random(({n}, 3))
 w = rng.standard_normal(({n}, 2))
@@ -46,8 +46,8 @@ np.save("/tmp/df64_grad_oracle_g.npy", g)
 def main():
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 100_000
     seed = 7
-    from ferreus_rbf_tpu.ops.fmm.api import FmmTree
-    from ferreus_rbf_tpu.ops.kernels import KernelParams, KernelType
+    from ferreus_rbf.ops.fmm.api import FmmTree
+    from ferreus_rbf.ops.kernels import KernelParams, KernelType
 
     rng = np.random.default_rng(seed)
     pts = rng.random((n, 3))

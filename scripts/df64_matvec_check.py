@@ -23,9 +23,9 @@ def build(precision_platform_cpu):
     if precision_platform_cpu:
         jax.config.update("jax_platforms", "cpu")
 
-    from ferreus_rbf_tpu.config import FmmCompressionType, FmmParams
-    from ferreus_rbf_tpu.ops.fmm.api import FmmTree
-    from ferreus_rbf_tpu.ops.kernels import KernelParams, KernelType
+    from ferreus_rbf.config import FmmCompressionType, FmmParams
+    from ferreus_rbf.ops.fmm.api import FmmTree
+    from ferreus_rbf.ops.kernels import KernelParams, KernelType
 
     rng = np.random.default_rng(42)
     pts = rng.random((N, 3))

@@ -46,8 +46,8 @@ def _dense_oracle_residual(rbfi, vals, n_sample=512, seed=3):
     """TRUE-f64 residual at a source subsample: dense numpy kernel block +
     nugget + drift of the fitted coefficients vs the input data. No FMM,
     no df64 — solution quality independent of evaluator truncation."""
-    from ferreus_rbf_tpu.ops.kernels import make_kernel
-    from ferreus_rbf_tpu.ops.polynomials import evaluate_monomials
+    from ferreus_rbf.ops.kernels import make_kernel
+    from ferreus_rbf.ops.polynomials import evaluate_monomials
 
     src = np.asarray(rbfi.points, np.float64)
     w = rbfi.coefficients.point_coefficients
@@ -115,9 +115,9 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     from bench import _synthetic_sd
 
-    import ferreus_rbf_tpu as frt
-    from ferreus_rbf_tpu.config import FmmCompressionType, FmmParams, Params
-    from ferreus_rbf_tpu.utils import telemetry
+    import ferreus_rbf as frt
+    from ferreus_rbf.config import FmmCompressionType, FmmParams, Params
+    from ferreus_rbf.utils import telemetry
 
     n = args.n
     print(f"[fit_at_scale] generating {n:,} synthetic SD points", flush=True)
@@ -125,7 +125,7 @@ def main():
     s = frt.InterpolantSettings(kernel_type=frt.RBFKernelType.Linear)
     params = None
     if args.order is not None or args.eval_chunk is not None:
-        from ferreus_rbf_tpu.config import get_default_fmm_interpolation_order
+        from ferreus_rbf.config import get_default_fmm_interpolation_order
 
         order = args.order or get_default_fmm_interpolation_order(
             frt.RBFKernelType.Linear)

@@ -16,12 +16,12 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from ferreus_rbf_tpu.ops import df64
-    from ferreus_rbf_tpu.ops.fmm import p2p_pallas
-    from ferreus_rbf_tpu.ops.kernels import KernelParams, KernelType, make_kernel
+    from ferreus_rbf.ops import df64
+    from ferreus_rbf.ops.fmm import p2p_pallas
+    from ferreus_rbf.ops.kernels import KernelParams, KernelType, make_kernel
 
     kt = KernelType[sys.argv[1]] if len(sys.argv) > 1 else KernelType.LinearRbf
-    keep = int(os.environ.get("FERREUS_RBF_TPU_DF64_KEEP", "6"))
+    keep = int(os.environ.get("FERREUS_RBF_DF64_KEEP", "6"))
     R, T, U, S, d, nrhs = 64, 128, 27, 256, 3, 8
     L = 512
     rng = np.random.default_rng(0)

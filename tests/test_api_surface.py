@@ -3,9 +3,9 @@ model round-trips with trend."""
 
 import numpy as np
 
-import ferreus_rbf_tpu as frt
-from ferreus_rbf_tpu import bbfmm
-from ferreus_rbf_tpu.utils import telemetry
+import ferreus_rbf as frt
+from ferreus_rbf import bbfmm
+from ferreus_rbf.utils import telemetry
 
 
 def test_bbfmm_module_surface():
@@ -39,7 +39,7 @@ def test_bbfmm_module_surface():
     tree2 = bbfmm.FmmTree(pts, 4, kp2, params=params)
     tree2.set_weights(w)
     v = tree2.evaluate(w, targets)
-    from ferreus_rbf_tpu.ops.kernels import KernelParams, KernelType, make_kernel
+    from ferreus_rbf.ops.kernels import KernelParams, KernelType, make_kernel
     want = np.asarray(make_kernel(KernelParams(KernelType.Laplacian), xp=np).pair(targets, pts)) @ w
     assert np.max(np.abs(v - want)) < 1e-2 * np.max(np.abs(want))
 
@@ -79,7 +79,7 @@ def test_single_column_values_return_1d():
     stay 2-D; multi-RHS values stay 2-D."""
     import numpy as np
 
-    import ferreus_rbf_tpu as frt
+    import ferreus_rbf as frt
 
     pts = frt.generate_random_points(300, 2, seed=3)
     vals = frt.RBFTestFunctions.franke_2d(pts)

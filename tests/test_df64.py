@@ -9,7 +9,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from ferreus_rbf_tpu.ops import df64
+from ferreus_rbf.ops import df64
 
 
 def _rel(a, b):
@@ -106,7 +106,7 @@ def test_ozaki_einsum_batched(rng):
     "OneOverR2", "OneOverR4",
 ])
 def test_phi_df64_matches_f64(rng, kt):
-    from ferreus_rbf_tpu.ops.kernels import KernelParams, KernelType, make_kernel, make_phi_df64
+    from ferreus_rbf.ops.kernels import KernelParams, KernelType, make_kernel, make_phi_df64
 
     kp = KernelParams(KernelType(kt), base_range=2.0, total_sill=1.3)
     r2 = np.concatenate([
@@ -147,10 +147,10 @@ def test_ozaki_chunked_bitwise_equal(rng, monkeypatch):
         b = jnp.asarray(rng.standard_normal(bsh))
         ref = df64.ozaki_einsum(spec, a, b, nsl=4, keep=4)
         df64._part_budget_bytes.cache_clear()
-        monkeypatch.setenv("FERREUS_RBF_TPU_OZAKI_BYTES", "100000")
+        monkeypatch.setenv("FERREUS_RBF_OZAKI_BYTES", "100000")
         try:
             chunked = df64.ozaki_einsum(spec, a, b, nsl=4, keep=4)
         finally:
             df64._part_budget_bytes.cache_clear()
-            monkeypatch.delenv("FERREUS_RBF_TPU_OZAKI_BYTES")
+            monkeypatch.delenv("FERREUS_RBF_OZAKI_BYTES")
         assert bool(jnp.all(ref == chunked)), spec

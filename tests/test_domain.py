@@ -9,16 +9,16 @@ inputs at the sources.
 import numpy as np
 import pytest
 
-from ferreus_rbf_tpu import (
+from ferreus_rbf import (
     InterpolantSettings,
     RBFKernelType,
     RBFTestFunctions,
     generate_random_points,
 )
-from ferreus_rbf_tpu.ops.dense import get_a_matrix, get_a_matrix_symmetric_solver
-from ferreus_rbf_tpu.ops.polynomials import evaluate_monomials
-from ferreus_rbf_tpu.solver.domain import Domain
-from ferreus_rbf_tpu.utils.common import get_cheb_cube_scaling_factors
+from ferreus_rbf.ops.dense import get_a_matrix, get_a_matrix_symmetric_solver
+from ferreus_rbf.ops.polynomials import evaluate_monomials
+from ferreus_rbf.solver.domain import Domain
+from ferreus_rbf.utils.common import get_cheb_cube_scaling_factors
 
 
 def naive_rbf_solve(points, values, settings):

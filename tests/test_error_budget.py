@@ -10,8 +10,8 @@ verdict must attribute a truncation-dominated setup to truncation.
 import numpy as np
 import pytest
 
-from ferreus_rbf_tpu.ops.fmm.diagnostics import dense_oracle, fmm_error_budget
-from ferreus_rbf_tpu.ops.kernels import KernelParams, KernelType
+from ferreus_rbf.ops.fmm.diagnostics import dense_oracle, fmm_error_budget
+from ferreus_rbf.ops.kernels import KernelParams, KernelType
 
 
 def _cloud(n, seed=11):
@@ -44,7 +44,7 @@ def test_dense_oracle_matches_direct():
     kp = KernelParams(KernelType.LinearRbf)
     idx = np.arange(0, 600, 7)
     got = dense_oracle(pts, w, kp, idx, chunk_bytes=1e5)  # force chunking
-    from ferreus_rbf_tpu.ops.kernels import make_kernel
+    from ferreus_rbf.ops.kernels import make_kernel
 
     kernel = make_kernel(kp, xp=np)
     want = kernel.pair(pts[idx], pts) @ w

@@ -5,11 +5,11 @@ force, Chebyshev operator sanity, M2L symmetry identity, and error paths."""
 import numpy as np
 import pytest
 
-from ferreus_rbf_tpu.config import FmmCompressionType, FmmParams
-from ferreus_rbf_tpu.ops.fmm import cheb, m2l
-from ferreus_rbf_tpu.ops.fmm.api import FmmTree, PointOutsideTreeError
-from ferreus_rbf_tpu.ops.fmm.tree import build_tree, calculate_tree_center_and_radius
-from ferreus_rbf_tpu.ops.kernels import KernelParams, KernelType, make_kernel
+from ferreus_rbf.config import FmmCompressionType, FmmParams
+from ferreus_rbf.ops.fmm import cheb, m2l
+from ferreus_rbf.ops.fmm.api import FmmTree, PointOutsideTreeError
+from ferreus_rbf.ops.fmm.tree import build_tree, calculate_tree_center_and_radius
+from ferreus_rbf.ops.kernels import KernelParams, KernelType, make_kernel
 
 
 def make_tree(pts, p, kp, adaptive=True, sparse=True, mppc=64,
@@ -333,8 +333,8 @@ def test_pallas_near_field_matches_scan():
     import jax
     import jax.numpy as jnp
 
-    import ferreus_rbf_tpu.ops.fmm.p2p_pallas as pp
-    from ferreus_rbf_tpu.ops.fmm import api as fmm_api
+    import ferreus_rbf.ops.fmm.p2p_pallas as pp
+    from ferreus_rbf.ops.fmm import api as fmm_api
 
     orig = pp.p2p_rows
     orig_pairs = pp.p2p_leaf_pairs
@@ -380,8 +380,8 @@ def test_pallas_m2p_tiles_match_scan():
     import jax
     import jax.numpy as jnp
 
-    import ferreus_rbf_tpu.ops.fmm.p2p_pallas as pp
-    from ferreus_rbf_tpu.ops.fmm import api as fmm_api
+    import ferreus_rbf.ops.fmm.p2p_pallas as pp
+    from ferreus_rbf.ops.fmm import api as fmm_api
 
     rng = np.random.default_rng(3)
     # strongly clustered: dense blob + sparse background -> deep adaptive
@@ -468,8 +468,8 @@ def test_pallas_df64_near_field_matches_f64(monkeypatch):
     import jax
     import jax.numpy as jnp
 
-    import ferreus_rbf_tpu.ops.fmm.p2p_pallas as pp
-    from ferreus_rbf_tpu.ops.fmm import api as fmm_api
+    import ferreus_rbf.ops.fmm.p2p_pallas as pp
+    from ferreus_rbf.ops.fmm import api as fmm_api
 
     for kname in ("p2p_leaf_pairs_df64", "p2p_pairlist_df64"):
         monkeypatch.setattr(
@@ -507,8 +507,8 @@ def test_pallas_df64_gradients_match_f64(monkeypatch):
     import jax
     import jax.numpy as jnp
 
-    import ferreus_rbf_tpu.ops.fmm.p2p_pallas as pp
-    from ferreus_rbf_tpu.ops.fmm import api as fmm_api
+    import ferreus_rbf.ops.fmm.p2p_pallas as pp
+    from ferreus_rbf.ops.fmm import api as fmm_api
 
     monkeypatch.setattr(
         pp, "p2p_pairlist_df64_grad",
@@ -571,7 +571,7 @@ def test_far_keep_policy_mapping():
     f64 arithmetic does too — ``bbfmm.rs`` only guarantees the truncated
     value); the policy picks the ozaki keep whose rounding (~2^-8k) stays
     <= 0.01 * epsilon, floored at 3, capped at the near-field dial."""
-    from ferreus_rbf_tpu.ops.fmm import api as fmm_api
+    from ferreus_rbf.ops.fmm import api as fmm_api
 
     if fmm_api._DF64_KEEP != 5:
         pytest.skip("mapping assertions assume the default keep=5 dial")
@@ -594,9 +594,9 @@ def test_far_keep_policy_end_to_end_error(monkeypatch):
     import jax
     import jax.numpy as jnp
 
-    import ferreus_rbf_tpu.ops.fmm.p2p_pallas as pp
-    from ferreus_rbf_tpu.ops.dense import get_a_matrix
-    from ferreus_rbf_tpu.ops.fmm import api as fmm_api
+    import ferreus_rbf.ops.fmm.p2p_pallas as pp
+    from ferreus_rbf.ops.dense import get_a_matrix
+    from ferreus_rbf.ops.fmm import api as fmm_api
 
     for kname in ("p2p_leaf_pairs_df64", "p2p_pairlist_df64"):
         monkeypatch.setattr(
@@ -639,7 +639,7 @@ def test_zall_fallback_bitwise_equal(monkeypatch):
     import jax
     import jax.numpy as jnp
 
-    from ferreus_rbf_tpu.ops.fmm import api as fmm_api
+    from ferreus_rbf.ops.fmm import api as fmm_api
 
     rng = np.random.default_rng(31)
     pts = rng.random((4000, 3))
@@ -653,13 +653,13 @@ def test_zall_fallback_bitwise_equal(monkeypatch):
     ref = np.asarray(tree.evaluate_device(w, "src", precision="df64"))
 
     fmm_api._zall_budget_bytes.cache_clear()
-    monkeypatch.setenv("FERREUS_RBF_TPU_ZALL_BYTES", "0")
+    monkeypatch.setenv("FERREUS_RBF_ZALL_BYTES", "0")
     jax.clear_caches()  # the gate is read at trace time
     try:
         got = np.asarray(tree.evaluate_device(w, "src", precision="df64"))
     finally:
         fmm_api._zall_budget_bytes.cache_clear()
-        monkeypatch.delenv("FERREUS_RBF_TPU_ZALL_BYTES")
+        monkeypatch.delenv("FERREUS_RBF_ZALL_BYTES")
         jax.clear_caches()
     assert np.array_equal(ref, got)
 
@@ -673,8 +673,8 @@ def test_m2p_node_tile_gate_equivalence(monkeypatch):
     import jax
     import jax.numpy as jnp
 
-    import ferreus_rbf_tpu.ops.fmm.p2p_pallas as pp
-    from ferreus_rbf_tpu.ops.fmm import api as fmm_api
+    import ferreus_rbf.ops.fmm.p2p_pallas as pp
+    from ferreus_rbf.ops.fmm import api as fmm_api
 
     import inspect
 
@@ -717,13 +717,13 @@ def test_m2p_node_tile_gate_equivalence(monkeypatch):
     rng = np.random.default_rng(37)  # same weights both runs
     gated0, ref = run()
     assert not gated0
-    monkeypatch.setenv("FERREUS_RBF_TPU_NODETILE_BYTES", "0")
+    monkeypatch.setenv("FERREUS_RBF_NODETILE_BYTES", "0")
     jax.clear_caches()
     rng = np.random.default_rng(37)
     try:
         gated1, got = run()
     finally:
-        monkeypatch.delenv("FERREUS_RBF_TPU_NODETILE_BYTES")
+        monkeypatch.delenv("FERREUS_RBF_NODETILE_BYTES")
         jax.clear_caches()
     assert gated1
     scale = np.max(np.abs(ref))

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from ferreus_rbf_tpu.ops.kernels import (
+from ferreus_rbf.ops.kernels import (
     KernelParams,
     KernelType,
     kernel_phi,
@@ -40,7 +40,7 @@ def test_phi_matches_formula(kt):
         if kt == KernelType.OneOverR4:
             return 0.0 if ri < 1e-10 else 1.0 / ri**4
         # spheroidal: piecewise closed form
-        from ferreus_rbf_tpu.ops.kernels import SPHEROIDAL_CONSTANTS, _SPHEROIDAL_ORDER
+        from ferreus_rbf.ops.kernels import SPHEROIDAL_CONSTANTS, _SPHEROIDAL_ORDER
 
         order = _SPHEROIDAL_ORDER[kt]
         c = SPHEROIDAL_CONSTANTS[order]

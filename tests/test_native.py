@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from ferreus_rbf_tpu import native
-from ferreus_rbf_tpu.ops.fmm.tree import (
+from ferreus_rbf import native
+from ferreus_rbf.ops.fmm.tree import (
     _build_interaction_lists_numpy,
     build_tree,
     calculate_tree_center_and_radius,

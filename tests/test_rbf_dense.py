@@ -8,7 +8,7 @@ tolerance; plus save/load round-trip, dedup, gradients, and trend handling.
 import numpy as np
 import pytest
 
-from ferreus_rbf_tpu import (
+from ferreus_rbf import (
     FittingAccuracy,
     FittingAccuracyType,
     GlobalTrend,

@@ -6,10 +6,10 @@ volumes, and the full RBF -> isosurface pipeline."""
 import numpy as np
 import pytest
 
-import ferreus_rbf_tpu as frt
-from ferreus_rbf_tpu.isosurfacing import BoundaryClosure, ClusterMethod
-from ferreus_rbf_tpu.rmt.isosurface import build_isosurface
-from ferreus_rbf_tpu.rmt import topology
+import ferreus_rbf as frt
+from ferreus_rbf.isosurfacing import BoundaryClosure, ClusterMethod
+from ferreus_rbf.rmt.isosurface import build_isosurface
+from ferreus_rbf.rmt import topology
 
 
 def sphere_sdf(pts):

@@ -14,18 +14,18 @@ import jax.numpy as jnp
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-import ferreus_rbf_tpu as frt
-from ferreus_rbf_tpu.config import DDMParams, FmmCompressionType, FmmParams, Params
-from ferreus_rbf_tpu.interpolant_config import (
+import ferreus_rbf as frt
+from ferreus_rbf.config import DDMParams, FmmCompressionType, FmmParams, Params
+from ferreus_rbf.interpolant_config import (
     FittingAccuracy,
     FittingAccuracyType,
     InterpolantSettings,
     RBFKernelType,
 )
-from ferreus_rbf_tpu.ops.fmm.api import FmmTree
-from ferreus_rbf_tpu.ops.kernels import KernelParams, KernelType
-from ferreus_rbf_tpu.parallel import make_mesh, use_mesh
-from ferreus_rbf_tpu.solver.ddm import DDMTree
+from ferreus_rbf.ops.fmm.api import FmmTree
+from ferreus_rbf.ops.kernels import KernelParams, KernelType
+from ferreus_rbf.parallel import make_mesh, use_mesh
+from ferreus_rbf.solver.ddm import DDMTree
 
 
 pytestmark = pytest.mark.skipif(
@@ -106,7 +106,7 @@ def test_row_sharded_matvec_matches_single_device():
     round-off; (c) the per-device compiled program does measurably less
     work than the 1-device program (cost-analysis FLOPs shrink).
     """
-    from ferreus_rbf_tpu.ops.fmm import api as fmm_api
+    from ferreus_rbf.ops.fmm import api as fmm_api
 
     pts = _points(n=1600, seed=13)
     kparams = KernelParams(KernelType.CubicRbf, base_range=1.0, total_sill=1.0)
@@ -212,8 +212,8 @@ def test_row_sharded_pallas_near_field(monkeypatch):
     """
     import functools
 
-    import ferreus_rbf_tpu.ops.fmm.p2p_pallas as pp
-    from ferreus_rbf_tpu.ops.fmm import api as fmm_api
+    import ferreus_rbf.ops.fmm.p2p_pallas as pp
+    from ferreus_rbf.ops.fmm import api as fmm_api
 
     for name in ("p2p_leaf_pairs", "p2p_leaf_slab", "p2p_leaf_fused"):
         orig = getattr(pp, name)

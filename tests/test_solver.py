@@ -5,11 +5,11 @@ fits through the public interpolator."""
 import numpy as np
 import pytest
 
-import ferreus_rbf_tpu as frt
-from ferreus_rbf_tpu.config import DDMParams, Params, Solvers
-from ferreus_rbf_tpu.interpolant_config import FittingAccuracy, FittingAccuracyType
-from ferreus_rbf_tpu.solver.ddm import DDMTree
-from ferreus_rbf_tpu.solver.fgmres import fgmres, givens_rotation, schwarz_ddm_solver
+import ferreus_rbf as frt
+from ferreus_rbf.config import DDMParams, Params, Solvers
+from ferreus_rbf.interpolant_config import FittingAccuracy, FittingAccuracyType
+from ferreus_rbf.solver.ddm import DDMTree
+from ferreus_rbf.solver.fgmres import fgmres, givens_rotation, schwarz_ddm_solver
 
 
 # ------------------------------------------------------------------ FGMRES
@@ -68,7 +68,7 @@ def test_device_fgmres_matches_host_mgs_iterations():
     must track the host reference's sequential MGS iteration-for-iteration,
     including on an ill-conditioned system where one-pass classical
     Gram-Schmidt visibly loses orthogonality."""
-    from ferreus_rbf_tpu.solver.fgmres import fgmres_device
+    from ferreus_rbf.solver.fgmres import fgmres_device
 
     rng = np.random.default_rng(7)
     n = 120
@@ -83,7 +83,7 @@ def test_device_fgmres_matches_host_mgs_iterations():
 
     def count_iters(solver, mv):
         iters = []
-        from ferreus_rbf_tpu.progress import Progress
+        from ferreus_rbf.progress import Progress
 
         cb = Progress(lambda msg: iters.append(msg))
         x = solver(
@@ -116,7 +116,7 @@ def test_refined_fgmres_escalates_on_stiff_system():
     inner operator to a_f64, and still converge."""
     import jax.numpy as jnp
 
-    from ferreus_rbf_tpu.solver.fgmres import refined_fgmres_device
+    from ferreus_rbf.solver.fgmres import refined_fgmres_device
 
     rng = np.random.default_rng(3)
     n = 100
@@ -238,8 +238,8 @@ def test_ddm_per_level_leaf_sizing(monkeypatch):
 
     # hermetic: the thresholds below assume the default 5.0 GB budget and
     # the shrink-to-fit mode (recompute off)
-    monkeypatch.delenv("FERREUS_RBF_TPU_DDM_MEM_GB", raising=False)
-    monkeypatch.setenv("FERREUS_RBF_TPU_DDM_RECOMPUTE", "0")
+    monkeypatch.delenv("FERREUS_RBF_DDM_MEM_GB", raising=False)
+    monkeypatch.setenv("FERREUS_RBF_DDM_RECOMPUTE", "0")
 
     tree = DDMTree.__new__(DDMTree)
     tree.params = DDMParams(leaf_threshold=1024, overlap_quota=0.5)
@@ -261,7 +261,7 @@ def test_ddm_per_level_leaf_sizing(monkeypatch):
     # default mode: a level whose cap cannot fit even the 128-pt floor
     # switches to recompute-from-points at FULL leaf strength (3M: cap=74);
     # levels whose floor fits keep stored factors (1M: cap=222 -> leaf 128)
-    monkeypatch.delenv("FERREUS_RBF_TPU_DDM_RECOMPUTE", raising=False)
+    monkeypatch.delenv("FERREUS_RBF_DDM_RECOMPUTE", raising=False)
     tree.factor_dtype = jnp.float32
     t_rc, rc = tree._leaf_threshold_for(3_000_000)
     assert rc and t_rc == tree.params.leaf_threshold
@@ -270,7 +270,7 @@ def test_ddm_per_level_leaf_sizing(monkeypatch):
     t_ok, rc_ok = tree._leaf_threshold_for(50_000)
     assert not rc_ok and t_ok == tree.params.leaf_threshold
     # forced mode: any capped level recomputes
-    monkeypatch.setenv("FERREUS_RBF_TPU_DDM_RECOMPUTE", "1")
+    monkeypatch.setenv("FERREUS_RBF_DDM_RECOMPUTE", "1")
     t_f, rc_f = tree._leaf_threshold_for(1_000_000)
     assert rc_f and t_f == tree.params.leaf_threshold
 
@@ -359,7 +359,7 @@ def test_f32_matvec_accuracy_and_refined_convergence():
     still converges the f64 residual to a tight tolerance."""
     import jax.numpy as jnp
 
-    from ferreus_rbf_tpu.solver.iterative import DeviceSystem
+    from ferreus_rbf.solver.iterative import DeviceSystem
 
     pts = frt.generate_random_points(5000, 3, seed=21)
     vals = frt.RBFTestFunctions.f1_3d(pts)
@@ -405,7 +405,7 @@ def test_fused_fgmres_matches_host_loop_fit():
         naive_solve_threshold=0,  # force the iterative path
     )
 
-    from ferreus_rbf_tpu.solver import fused as fused_mod
+    from ferreus_rbf.solver import fused as fused_mod
 
     seen = {}
     orig_init = fused_mod.FusedSystem.__init__
@@ -418,11 +418,11 @@ def test_fused_fgmres_matches_host_loop_fit():
     try:
         r_fused = frt.RBFInterpolator(pts, vals, settings, params)
         assert seen.get("ok") is True  # the fused path actually ran
-        os.environ["FERREUS_RBF_TPU_FUSED"] = "0"
+        os.environ["FERREUS_RBF_FUSED"] = "0"
         r_host = frt.RBFInterpolator(pts, vals, settings, params)
     finally:
         fused_mod.FusedSystem.__init__ = orig_init
-        os.environ.pop("FERREUS_RBF_TPU_FUSED", None)
+        os.environ.pop("FERREUS_RBF_FUSED", None)
 
     scale = float(np.max(np.abs(vals)))
     for r in (r_fused, r_host):
@@ -440,7 +440,7 @@ def test_host_refactor_indefinite_block_falls_back_spd():
     must still come back as a finite SPD Cholesky factor: the jitter loop
     cannot rescue it, so the spectral-clip fallback has to engage
     (reference escalates Llt -> Lblt, domain.rs:63)."""
-    from ferreus_rbf_tpu.solver.ddm import LeafPlan
+    from ferreus_rbf.solver.ddm import LeafPlan
 
     n = 24
     pts = np.asarray(frt.generate_random_points(n, 2, seed=3))
@@ -476,8 +476,8 @@ def test_stall_exit_then_escalation_telemetry():
     isolates the stall logic rather than the Krylov method."""
     import jax.numpy as jnp
 
-    from ferreus_rbf_tpu.solver.fgmres import refined_fgmres_device
-    from ferreus_rbf_tpu.utils import telemetry
+    from ferreus_rbf.solver.fgmres import refined_fgmres_device
+    from ferreus_rbf.utils import telemetry
 
     rng = np.random.default_rng(11)
     n = 2000
@@ -540,22 +540,22 @@ def test_ddm_recompute_matches_stored_factors(monkeypatch):
     tolerance as the stored-factor fit."""
     import jax.numpy as jnp
 
-    import ferreus_rbf_tpu as frt
+    import ferreus_rbf as frt
 
     pts = frt.generate_random_points(3000, 3, seed=13)
     vals = frt.RBFTestFunctions.f1_3d(pts)
     s = frt.InterpolantSettings(kernel_type=frt.RBFKernelType.Linear)
     params = _iter_params(frt.RBFKernelType.Linear)
 
-    monkeypatch.setenv("FERREUS_RBF_TPU_DDM_RECOMPUTE", "0")
+    monkeypatch.setenv("FERREUS_RBF_DDM_RECOMPUTE", "0")
     r_stored = frt.RBFInterpolator(pts, vals, s, params)
 
     # tiny budget: the finest level's cap falls below leaf/2 -> recompute
-    monkeypatch.setenv("FERREUS_RBF_TPU_DDM_MEM_GB", "0.00001")
-    monkeypatch.delenv("FERREUS_RBF_TPU_DDM_RECOMPUTE", raising=False)
+    monkeypatch.setenv("FERREUS_RBF_DDM_MEM_GB", "0.00001")
+    monkeypatch.delenv("FERREUS_RBF_DDM_RECOMPUTE", raising=False)
     r_rc = frt.RBFInterpolator(pts, vals, s, params)
 
-    from ferreus_rbf_tpu.solver.iterative import DeviceSystem  # noqa: F401
+    from ferreus_rbf.solver.iterative import DeviceSystem  # noqa: F401
 
     vref = np.asarray(vals).reshape(-1)
     for rbfi, label in ((r_stored, "stored"), (r_rc, "recompute")):
