@@ -53,8 +53,9 @@ class FmmParams:
     """FMM tuning parameters (``config.rs:209-252``).
 
     ``eval_chunk_size`` mirrors the reference's leaf-pass target chunking
-    (``bbfmm.rs:1277,1369``). On TPU the leaf pass is scanned over row
-    chunks whose transient HBM footprint is bounded by fixed byte budgets;
+    (``bbfmm.rs:1277,1369``). Here the leaf pass is scanned over row
+    chunks whose transient device-memory footprint is bounded by fixed
+    element budgets;
     this knob scales those budgets (and hence the chunk sizes) linearly,
     with 1024 reproducing the defaults. Smaller values bound peak memory
     tighter at the cost of more scan steps.
@@ -106,16 +107,16 @@ class Params:
     naive_solve_threshold: int = 4096
     test_unique: bool = True
 
-    # TPU-specific: run the solver's inner iterations with float32 FMM
-    # contractions and recover full f64 accuracy by iterative refinement on
-    # exact f64 residuals (TPUs emulate f64 at ~10x the cost of f32; the
-    # refined solve converges to the same tolerance, measured in f64).
+    # Run the solver's inner iterations with float32 FMM contractions and
+    # recover full f64 accuracy by iterative refinement on exact f64
+    # residuals; the refined solve converges to the same tolerance,
+    # measured in f64. False runs every iteration in f64.
     mixed_precision: bool = True
 
-    # TPU-specific: dtype of the stored Schwarz leaf Cholesky factors.
-    # "f32" (default) halves preconditioner HBM — the million-point fit
-    # needs it on a 16GB chip — and right-preconditioned *flexible* GMRES
-    # tolerates the inexact apply; "f64" for exact-parity studies.
+    # dtype of the stored Schwarz leaf Cholesky factors. "f32" (default)
+    # halves the preconditioner's memory, and right-preconditioned
+    # *flexible* GMRES tolerates the inexact apply; "f64" for exact-parity
+    # studies.
     precond_factor_dtype: str = "f32"
 
     @classmethod

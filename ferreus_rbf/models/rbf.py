@@ -9,7 +9,7 @@ Maps ``ferreus_rbf/src/rbf.rs`` (orchestrator). The fit pipeline is:
    iteration preconditioned by the multilevel Schwarz hierarchy over
    FMM matvecs (``rbf.rs:456-576``).
 
-TPU-first split: steps 1-2 and all setup combinatorics run on the host; the
+Host/device split: steps 1-2 and all setup combinatorics run on the host; the
 iterative hot loop (FMM matvec + batched domain solves) is jitted device
 code. Evaluation goes through an evaluator object — the FMM evaluator with
 its amortised set_local_coefficients/leaf-eval split when available, a dense

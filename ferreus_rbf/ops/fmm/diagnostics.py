@@ -1,25 +1,23 @@
-"""FMM evaluator error budget: truncation vs precision attribution.
+"""FMM evaluator error budget and near-field reference.
 
-Answers the question VERDICT r4 item 4 left open: when an interpolant's
-values differ from a true-f64 dense oracle at scale (1.3e-05 at 1M points
-vs 5e-7 small-scale), is the error (a) Chebyshev/ACA truncation of the
-far field — which the Rust reference shares, its f64 arithmetic only
-reproduces the TRUNCATED value (``/root/reference/ferreus_bbfmm/src/
-chebyshev.rs:723-786``, ``bbfmm.rs:864-986``) — or (b) this framework's
-own df64 split-precision arithmetic / far-field dial / accumulation order?
+``fmm_error_budget`` answers: when an interpolant's values differ from a
+true-f64 dense oracle at scale, is the error (a) Chebyshev/ACA truncation
+of the far field — which the Rust reference shares, its f64 arithmetic only
+reproduces the TRUNCATED value (``ferreus_bbfmm/src/chebyshev.rs:723-786``,
+``bbfmm.rs:864-986``) — or (b) the arithmetic precision of the passes?
 
 The sweep holds the points + weights fixed and varies ONE axis at a time:
 
 - ``interpolation_order`` p: truncation scales ~10^-p; anything that does
   not move with p is not truncation.
-- precision tier at fixed p: ``"df64"`` (full near+far dial) vs the plan's
-  epsilon-dialed far field (``tree._f64_prec``, e.g. ``"df64f4"``) vs
-  ``"f32"``. If full-dial and dialed errors coincide, the far-field dial
-  contributes nothing at this epsilon; the gap to f32 shows what the df64
-  tier buys.
+- precision at fixed p: ``"f64"`` vs ``"f32"``; the gap shows what the f64
+  tier buys over the solver's inner matvec.
 
 Every variant is compared to the same dense numpy-f64 oracle (exact kernel
-sums, no FMM, no df64) on a sampled target subset.
+sums, no FMM) on a sampled target subset.
+
+``near_field_reference`` is the plain numpy f64 sum over a tree's u-list
+pairs: what the FMM's near-field (P2P) leg must reproduce exactly.
 """
 
 from __future__ import annotations
@@ -58,13 +56,12 @@ def fmm_error_budget(
     adaptive_tree=True,
     max_points_per_cell=256,
 ):
-    """Max relative FMM-vs-dense error per (order, precision-tier) variant.
+    """Max relative FMM-vs-dense error per (order, precision) variant.
 
     Returns ``{"n", "n_sample", "entries": [{"p", "prec", "err"}...],
-    "verdict"}`` where ``verdict`` names the dominant error source:
-    ``"cheb_truncation"`` if the error tracks p at fixed precision,
-    ``"far_dial"`` if the dialed far field is measurably above the full
-    dial, ``"df64_floor"`` if neither moves it.
+    "tracks_p", "verdict"}`` where ``verdict`` names the dominant error
+    source of the f64 tier: ``"cheb_truncation"`` if its error tracks p,
+    ``"precision_floor"`` if it does not.
     """
     pts = np.asarray(pts, np.float64)
     w = np.asarray(weights, np.float64)
@@ -90,41 +87,57 @@ def fmm_error_budget(
         tree = FmmTree(pts, int(p), kparams, adaptive_tree=adaptive_tree,
                        sparse=True, params=params)
         tree.prepare_targets(sample_pts, "sample")
-        # dialed far field (what the f64-grade tier actually runs), the
-        # full df64 dial, and f32 — at the plan's own epsilon
-        precs = {"dialed": tree._f64_prec, "full": "df64", "f32": "f32"}
-        for label, prec in precs.items():
+        for prec in ("f64", "f32"):
             vals = np.asarray(tree.evaluate_device(w_dev, "sample",
                                                    precision=prec))
             err = float(np.max(np.abs(vals - oracle)) / scale)
-            entries.append({"p": int(p), "prec": label,
-                            "prec_str": prec, "err": float(f"{err:.3e}")})
-            by_key[(int(p), label)] = err
+            entries.append({"p": int(p), "prec": prec,
+                            "err": float(f"{err:.3e}")})
+            by_key[(int(p), prec)] = err
         del tree
 
-    # attribution: does the dialed error track p (truncation), exceed the
-    # full dial at fixed p (far dial), or sit on a p-independent floor?
     ps = sorted({e["p"] for e in entries})
-    dialed = [by_key[(p, "dialed")] for p in ps]
-    full = [by_key[(p, "full")] for p in ps]
-    tracks_p = len(ps) >= 2 and dialed[-1] < 0.1 * dialed[0]
-    dial_gap = max(
-        (by_key[(p, "dialed")] / max(by_key[(p, "full")], 1e-300) for p in ps)
-    )
-    if tracks_p and dial_gap < 3.0:
-        verdict = "cheb_truncation"
-    elif dial_gap >= 3.0:
-        verdict = "far_dial"
-    else:
-        verdict = "df64_floor"
+    f64 = [by_key[(p, "f64")] for p in ps]
+    tracks_p = len(ps) >= 2 and f64[-1] < 0.1 * f64[0]
     return {
         "n": int(n),
         "n_sample": int(sample_idx.size),
         "entries": entries,
-        "dial_over_full_max": float(f"{dial_gap:.2f}"),
         "tracks_p": bool(tracks_p),
-        "verdict": verdict,
-        "note": "err = max rel FMM-vs-dense-f64 at the sample; 'dialed' is "
-                "the f64-grade tier's epsilon-keyed far field, 'full' the "
-                "full df64 dial, each at that plan's own epsilon=1e-p",
+        "verdict": "cheb_truncation" if tracks_p else "precision_floor",
+        "note": "err = max rel FMM-vs-dense-f64 at the sample, each at that "
+                "plan's own epsilon=1e-p",
     }
+
+
+def near_field_reference(tree, weights, targets):
+    """Numpy f64 near field of ``tree`` at ``targets``: for each target,
+    the kernel sum over the source points of every leaf in its leaf's
+    u-list (the reference's direct P2P, ``bbfmm.rs:1254``). Returns
+    (len(targets), nrhs)."""
+    t = tree.tree
+    w = np.asarray(weights, np.float64)
+    if w.ndim == 1:
+        w = w[:, None]
+    targets = np.asarray(targets, np.float64)
+    kernel = make_kernel(tree.kernel_params, xp=np)
+    pts = np.asarray(tree.source_points, np.float64)
+    leaf_row = np.full(t.num_cells, -1, np.int64)
+    leaf_row[t.leaf_cells] = np.arange(t.leaf_cells.size)
+    u_of = {}
+    for tgt_cell, src_cell in t.u_pairs:
+        u_of.setdefault(int(tgt_cell), []).append(int(src_cell))
+    leaf_of_target = t.points_to_leaves(targets)
+    out = np.zeros((targets.shape[0], w.shape[1]))
+    for cell in np.unique(leaf_of_target):
+        rows = np.nonzero(leaf_of_target == cell)[0]
+        src = []
+        for s in u_of.get(int(cell), []):
+            r = leaf_row[s]
+            if r >= 0:
+                src.append(t.point_order[t.leaf_offsets[r]:t.leaf_offsets[r + 1]])
+        if not src:
+            continue
+        src = np.concatenate(src)
+        out[rows] = kernel.pair(targets[rows], pts[src]) @ w[src]
+    return out

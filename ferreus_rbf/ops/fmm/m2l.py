@@ -13,7 +13,7 @@ permutation row (precomputed int table) reorders multipole node values, the
 compressed (U, V^T) pair is applied as two batched matmuls over all
 interactions sharing the reference operator, and the inverse permutation row
 scatters into the target locals. That turns the reference's per-cell matmat
-loop into a handful of big MXU matmuls per (level, reference-vector) group.
+loop into a handful of big batched matmuls per (level, reference-vector) group.
 """
 
 from __future__ import annotations

@@ -13,14 +13,14 @@ Mirrors the kernel registry of the reference
 * OneOverR2              phi(r) = 1/r^2               (0 at r = 0)
 * OneOverR4              phi(r) = 1/r^4               (0 at r = 0)
 
-TPU-first design: kernels are *vectorised closures over squared distance*.
-Every caller (dense A-matrix build, FMM P2P tiles, M2L operator generation)
+Design: kernels are *vectorised closures over squared distance*. Every
+caller (dense A-matrix build, FMM P2P tiles, M2L operator generation)
 computes a batched ``r2`` tensor and maps ``phi_r2`` / ``grad_scale_r2`` over
 it — there is no per-pair scalar dispatch anywhere. The same formula source
 serves both backends: ``make_kernel(params)`` builds jnp (device) closures
 for the jitted compute path, ``make_kernel(params, xp=numpy)`` builds the
-host-side twin used by setup-time factorisations, so host and device agree
-bit-for-bit on the f64 math.
+host-side twin used by setup-time factorisations; both evaluate the same
+f64 expressions with plain sqrt / rsqrt / division.
 
 Gradients follow the reference convention: grad phi(t - s) = (t - s) * g(r2)
 with g returned by ``grad_scale_r2`` (see e.g. ``rbf_kernels.rs:265-300``).
@@ -161,41 +161,7 @@ class Kernel:
         return k, diff * g[..., None]
 
 
-# TPUs have no f64 ALUs: XLA emulates f64, and emulated sqrt/divide are an
-# order of magnitude slower than mul/add chains (measured ~10x on v5e for
-# sqrt). The jnp paths therefore compute sqrt/rsqrt/reciprocal by an f32
-# hardware seed + Newton refinement in f64 mul/adds — ~5e-14 relative
-# accuracy, well below the BBFMM truncation error, at near mul/add cost.
-_F32_TINY = 1e-30
-
-
-def _rsqrt_refined(r2_safe):
-    """1/sqrt(x) for x >= _F32_TINY: f32 rsqrt seed + 2 f64 Newton steps."""
-    if r2_safe.dtype == jnp.float32:
-        return jax.lax.rsqrt(r2_safe)
-    y = jax.lax.rsqrt(r2_safe.astype(jnp.float32)).astype(jnp.float64)
-    y = y * (1.5 - 0.5 * r2_safe * y * y)
-    y = y * (1.5 - 0.5 * r2_safe * y * y)
-    return y
-
-
-def _recip_refined(x_safe):
-    """1/x via f32 reciprocal seed + 2 f64 Newton steps (x bounded away
-    from 0 and f32 overflow by the caller's masking)."""
-    if x_safe.dtype == jnp.float32:
-        return 1.0 / x_safe
-    y = (1.0 / x_safe.astype(jnp.float32)).astype(jnp.float64)
-    y = y * (2.0 - x_safe * y)
-    y = y * (2.0 - x_safe * y)
-    return y
-
-
 def _safe_sqrt(xp, r2):
-    if xp is jnp:
-        if r2.dtype == jnp.float32:
-            return jnp.sqrt(jnp.maximum(r2, 0.0))
-        v = jnp.maximum(r2, 0.0)
-        return v * _rsqrt_refined(jnp.maximum(v, _F32_TINY))
     return xp.sqrt(xp.maximum(r2, 0.0))
 
 
@@ -204,21 +170,13 @@ def _safe_log_r(xp, r2):
     return 0.5 * xp.log(xp.where(r2 > _EPS, r2, 1.0))
 
 
+def _rsqrt(xp, x):
+    return jax.lax.rsqrt(x) if xp is jnp else 1.0 / np.sqrt(x)
+
+
 def _safe_inv_r(xp, r2):
-    if xp is jnp:
-        safe = xp.where(r2 > _EPS, r2, 1.0)
-        if r2.dtype == jnp.float32:
-            return xp.where(r2 > _EPS, jax.lax.rsqrt(safe), 0.0)
-        return xp.where(r2 > _EPS, _rsqrt_refined(safe), 0.0)
-    return xp.where(r2 > _EPS, 1.0 / _safe_sqrt(xp, xp.where(r2 > _EPS, r2, 1.0)), 0.0)
-
-
-def _safe_recip(xp, x, mask):
-    """1/x where mask, else 0; x replaced by 1 outside the mask."""
-    safe = xp.where(mask, x, 1.0)
-    if xp is jnp:
-        return xp.where(mask, _recip_refined(safe), 0.0)
-    return xp.where(mask, 1.0 / safe, 0.0)
+    mask = r2 > _EPS
+    return xp.where(mask, _rsqrt(xp, xp.where(mask, r2, 1.0)), 0.0)
 
 
 def _linear(xp) -> Kernel:
@@ -271,11 +229,8 @@ def _spheroidal(xp, order: int, base_range: float, total_sill: float) -> Kernel:
     def phi_r2(r2):
         sr2 = s2 * r2
         near = total_sill - near_slope * _safe_sqrt(xp, r2)
-        t = 1.0 + sr2  # >= 1, so reciprocal/rsqrt seeds are safe
-        if xp is jnp:
-            far = far_coef * _recip_refined(t**pw) * _rsqrt_refined(t)
-        else:
-            far = far_coef / (t**pw * xp.sqrt(t))
+        t = 1.0 + sr2  # >= 1
+        far = far_coef / (t**pw * xp.sqrt(t))
         return xp.where(sr2 <= ip2, near, far)
 
     def grad(r2):
@@ -283,13 +238,8 @@ def _spheroidal(xp, order: int, base_range: float, total_sill: float) -> Kernel:
         near_g = -near_slope * _safe_inv_r(xp, r2)
         p = pw + 0.5
         t = 1.0 + sr2
-        if xp is jnp:
-            # t^(p+1) = t^(pw+1) * sqrt(t) with integer pw
-            far_g = (-2.0 * p * s2 * far_coef) * _recip_refined(
-                t ** (pw + 1)
-            ) * _rsqrt_refined(t)
-        else:
-            far_g = -2.0 * p * s2 * far_coef / t ** (p + 1.0)
+        # t^(p+1) = t^(pw+1) * sqrt(t) with integer pw
+        far_g = -2.0 * p * s2 * far_coef / (t ** (pw + 1) * xp.sqrt(t))
         g = xp.where(sr2 <= ip2, near_g, far_g)
         return xp.where(r2 > _EPS, g, 0.0)
 
@@ -303,12 +253,9 @@ def _inverse_power(xp, p: int) -> Kernel:
         """r^-q (q possibly half-integer) where r2 > eps, else 0."""
         mask = r2 > _EPS
         safe = xp.where(mask, r2, 1.0)
-        if xp is jnp:
-            whole = _recip_refined(safe ** (q // 2)) if q // 2 else 1.0
-            half = _rsqrt_refined(safe) if q % 2 else 1.0
-            return xp.where(mask, whole * half, 0.0)
-        val = safe ** (-q / 2.0) if q % 2 else safe ** (-(q // 2))
-        return xp.where(mask, val, 0.0)
+        whole = 1.0 / safe ** (q // 2) if q // 2 else 1.0
+        half = _rsqrt(xp, safe) if q % 2 else 1.0
+        return xp.where(mask, whole * half, 0.0)
 
     def phi_r2(r2):
         return _inv_pow(r2, p)
@@ -317,205 +264,6 @@ def _inverse_power(xp, p: int) -> Kernel:
         return -p * _inv_pow(r2, p + 2)
 
     return Kernel(phi_r2, grad, xp, homogeneity=-float(p))
-
-
-# --------------------------------------------------------------- df64 phis
-# Double-float (two-f32) kernel evaluations for the TPU f64-grade tier: the
-# VPU has no f64 pipe, so the Pallas near field and the split-matmul passes
-# evaluate phi as (hi, lo) f32 pairs (~49 bits) built from ops/df64.py
-# error-free transformations. Same formulas as the f64 closures above
-# (``rbf_kernels.rs``); branch selection compares the hi word only — the
-# spheroidal near/far pieces are calibrated continuous at the inflexion
-# point, so a boundary-side flip within f32 rounding is harmless.
-
-
-def _df64_c(x):
-    hi = np.float32(x)
-    return hi, np.float32(np.float64(x) - np.float64(hi))
-
-
-def make_phi_df64(params: KernelParams):
-    """phi as a df64 closure: (r2_hi, r2_lo) f32 -> (phi_hi, phi_lo) f32."""
-    from . import df64 as dd
-
-    kt = params.kernel_type
-    eps32 = np.float32(_EPS)
-
-    if kt == KernelType.LinearRbf:
-
-        def phi(h, l):
-            sh, sl = dd.sqrt(h, l)
-            return -sh, -sl
-
-    elif kt == KernelType.CubicRbf:
-
-        def phi(h, l):
-            sh, sl = dd.sqrt(h, l)
-            return dd.mul(h, l, sh, sl)
-
-    elif kt == KernelType.ThinPlateSplineRbf:
-
-        def phi(h, l):
-            mask = h > eps32
-            hs = jnp.where(mask, h, jnp.float32(1.0))
-            ls = jnp.where(mask, l, jnp.float32(0.0))
-            gh, gl = dd.log(hs, ls)
-            vh, vl = dd.mul(hs, ls, gh * 0.5, gl * 0.5)
-            return jnp.where(mask, vh, 0.0), jnp.where(mask, vl, 0.0)
-
-    elif kt in _SPHEROIDAL_ORDER:
-        order = _SPHEROIDAL_ORDER[kt]
-        c = SPHEROIDAL_CONSTANTS[order]
-        pw = _SPHEROIDAL_POW[order]
-        s = c.range_scaling / params.base_range
-        s2h, s2l = _df64_c(s * s)
-        ip2 = np.float32(c.inflexion_point * c.inflexion_point)
-        nsh, nsl_ = _df64_c(params.total_sill * c.linear_slope * s)
-        sillh, silll = _df64_c(params.total_sill)
-        fch, fcl = _df64_c(params.total_sill * c.inv_y_intercept)
-
-        def phi(h, l):
-            rh, rl = dd.sqrt(h, l)
-            nh, nl = dd.mul(rh, rl, jnp.full_like(h, nsh), jnp.full_like(h, nsl_))
-            nh, nl = dd.add(jnp.full_like(h, sillh), jnp.full_like(h, silll), -nh, -nl)
-            srh, srl = dd.mul(h, l, jnp.full_like(h, s2h), jnp.full_like(h, s2l))
-            th, tl = dd.add(srh, srl, jnp.float32(1.0), jnp.float32(0.0))
-            ph, pl = th, tl
-            for _ in range(pw - 1):
-                ph, pl = dd.mul(ph, pl, th, tl)
-            qh, ql = dd.sqrt(th, tl)
-            dh, dl = dd.mul(ph, pl, qh, ql)
-            fh, fl = dd.recip(dh, dl)
-            fh, fl = dd.mul(fh, fl, jnp.full_like(h, fch), jnp.full_like(h, fcl))
-            near = srh <= ip2
-            return jnp.where(near, nh, fh), jnp.where(near, nl, fl)
-
-    elif kt in (KernelType.Laplacian, KernelType.OneOverR2, KernelType.OneOverR4):
-        p = {KernelType.Laplacian: 1, KernelType.OneOverR2: 2, KernelType.OneOverR4: 4}[kt]
-
-        def phi(h, l):
-            mask = h > eps32
-            hs = jnp.where(mask, h, jnp.float32(1.0))
-            ls = jnp.where(mask, l, jnp.float32(0.0))
-            if p == 1:
-                sh, sl = dd.sqrt(hs, ls)
-                vh, vl = dd.recip(sh, sl)
-            elif p == 2:
-                vh, vl = dd.recip(hs, ls)
-            else:
-                vh, vl = dd.recip(hs, ls)
-                vh, vl = dd.sqr(vh, vl)
-            return jnp.where(mask, vh, 0.0), jnp.where(mask, vl, 0.0)
-
-    else:  # pragma: no cover
-        raise ValueError(f"Unknown kernel type {kt}")
-
-    return phi
-
-
-def make_gscale_df64(params: KernelParams):
-    """grad_scale_r2 as a df64 closure: (r2_hi, r2_lo) -> (g_hi, g_lo).
-
-    Same formulas as the f64 ``grad`` closures above (``rbf_kernels.rs:
-    265-300``): grad phi at displacement d = t - s is ``d * g(|d|^2)``.
-    Drives the f64-grade Pallas gradient near field (the TPU replacement
-    for the reference's native-f64 gradient evaluation, ``bbfmm.rs:434``).
-    """
-    from . import df64 as dd
-
-    kt = params.kernel_type
-    eps32 = np.float32(_EPS)
-
-    def _masked(fn):
-        def g(h, l):
-            mask = h > eps32
-            hs = jnp.where(mask, h, jnp.float32(1.0))
-            ls = jnp.where(mask, l, jnp.float32(0.0))
-            vh, vl = fn(hs, ls)
-            return jnp.where(mask, vh, 0.0), jnp.where(mask, vl, 0.0)
-
-        return g
-
-    if kt == KernelType.LinearRbf:
-        # -1/r
-        def _g(h, l):
-            sh, sl = dd.sqrt(h, l)
-            rh, rl = dd.recip(sh, sl)
-            return -rh, -rl
-
-        g = _masked(_g)
-
-    elif kt == KernelType.ThinPlateSplineRbf:
-        # 2 ln r + 1 = ln(r2) + 1
-        def _g(h, l):
-            gh, gl = dd.log(h, l)
-            return dd.add(gh, gl, jnp.float32(1.0), jnp.float32(0.0))
-
-        g = _masked(_g)
-
-    elif kt == KernelType.CubicRbf:
-        # 3 r
-        def _g(h, l):
-            sh, sl = dd.sqrt(h, l)
-            return dd.mul_f32(sh, sl, jnp.float32(3.0))
-
-        g = _masked(_g)
-
-    elif kt in _SPHEROIDAL_ORDER:
-        order = _SPHEROIDAL_ORDER[kt]
-        c = SPHEROIDAL_CONSTANTS[order]
-        pw = _SPHEROIDAL_POW[order]
-        s = c.range_scaling / params.base_range
-        s2h, s2l = _df64_c(s * s)
-        ip2 = np.float32(c.inflexion_point * c.inflexion_point)
-        nsh, nsl_ = _df64_c(params.total_sill * c.linear_slope * s)
-        far_p = pw + 0.5
-        fgh, fgl = _df64_c(
-            -2.0 * far_p * (s * s) * params.total_sill * c.inv_y_intercept
-        )
-
-        def _g(h, l):
-            # near: -near_slope / r
-            rh, rl = dd.sqrt(h, l)
-            irh, irl = dd.recip(rh, rl)
-            nh, nl = dd.mul(irh, irl, jnp.full_like(h, -nsh), jnp.full_like(h, -nsl_))
-            # far: -2 p s^2 far_coef / (t^(pw+1) sqrt(t)), t = 1 + s^2 r^2
-            srh, srl = dd.mul(h, l, jnp.full_like(h, s2h), jnp.full_like(h, s2l))
-            th, tl = dd.add(srh, srl, jnp.float32(1.0), jnp.float32(0.0))
-            ph, pl = th, tl
-            for _ in range(pw):
-                ph, pl = dd.mul(ph, pl, th, tl)
-            qh, ql = dd.sqrt(th, tl)
-            dh2, dl2 = dd.mul(ph, pl, qh, ql)
-            fh, fl = dd.recip(dh2, dl2)
-            fh, fl = dd.mul(fh, fl, jnp.full_like(h, fgh), jnp.full_like(h, fgl))
-            near = srh <= ip2
-            return jnp.where(near, nh, fh), jnp.where(near, nl, fl)
-
-        g = _masked(_g)
-
-    elif kt in (KernelType.Laplacian, KernelType.OneOverR2, KernelType.OneOverR4):
-        p = {KernelType.Laplacian: 1, KernelType.OneOverR2: 2, KernelType.OneOverR4: 4}[kt]
-
-        def _g(h, l):
-            # -p / r^(p+2): r^-(p+2) = r2^-((p+2)/2)
-            q = p + 2
-            ih, il = dd.recip(h, l)
-            vh, vl = ih, il
-            for _ in range(q // 2 - 1):
-                vh, vl = dd.mul(vh, vl, ih, il)
-            if q % 2:
-                sh, sl = dd.sqrt(h, l)
-                rsh, rsl = dd.recip(sh, sl)
-                vh, vl = dd.mul(vh, vl, rsh, rsl)
-            return dd.mul_f32(vh, vl, jnp.float32(-p))
-
-        g = _masked(_g)
-
-    else:  # pragma: no cover
-        raise ValueError(f"Unknown kernel type {kt}")
-
-    return g
 
 
 def make_kernel(params: KernelParams, xp=jnp, dtype=None) -> Kernel:

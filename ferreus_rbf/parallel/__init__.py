@@ -1,7 +1,7 @@
 """Multi-chip scaling via jax.sharding meshes.
 
 The reference's only parallelism is shared-memory rayon (SURVEY.md section
-2.6); the TPU-native analogue is SPMD over a device mesh. The natural
+2.6); the analogue here is SPMD over a device mesh. The natural
 shardings for this workload (section 5.8 of SURVEY.md):
 
 * **RHS sharding** ("rhs" axis): multi-RHS matvecs and batched domain solves

@@ -93,8 +93,8 @@ class use_mesh:
     While active, ``DDMTree`` commits its Schwarz leaf buckets with the
     domain (leading) axis sharded over the mesh's ``"sp"`` axis, so the
     batched QTAQ Cholesky back-solves — the per-iteration preconditioner
-    cost — are partitioned across devices (the TPU-native replacement for
-    the reference's rayon loop at ``schwarz.rs:92-110``).
+    cost — are partitioned across devices (the SPMD replacement for the
+    reference's rayon loop at ``schwarz.rs:92-110``).
     """
 
     def __init__(self, mesh: Mesh):

@@ -1,7 +1,7 @@
 """Packed integer lattice keys + sorted-array maps for the RMT driver.
 
 The reference's extraction driver is compiled Rust over hashmaps
-(``ferreus_rmt/src/isosurface.rs:489-1047``). The TPU-framework analogue is
+(``ferreus_rmt/src/isosurface.rs:489-1047``). The analogue here is
 batched numpy over int64-packed (i, j, k) keys — the same sort/unique/
 searchsorted idiom ``ops/fmm/tree.py`` uses for the octree — so every
 wavefront generation, marching sweep and topology pass is a handful of

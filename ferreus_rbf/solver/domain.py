@@ -8,7 +8,7 @@ Cherrie's rank-revealing-QR "special point" selection handling the
 non-unisolvent case (Cherrie 2000, section 1.2) — exactly the reference's
 procedure at ``domain.rs:153-383``.
 
-Host/device split (TPU-first): all pivoted-QR combinatorics and the one-off
+Host/device split: all pivoted-QR combinatorics and the one-off
 Cholesky factorisations run here on the host in f64 numpy/scipy — they happen
 once per fit. The *per-iteration* solves are then executed on-device in
 batched, padded form by ``ferreus_rbf.solver.schwarz`` which extracts the

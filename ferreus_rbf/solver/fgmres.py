@@ -164,7 +164,7 @@ def fgmres_device(
 ):
     """Device-resident FGMRES: identical semantics to :func:`fgmres`, but
     ``a``/``m`` map device arrays to device arrays and the Krylov basis stays
-    in HBM. Per inner iteration only the Gram-Schmidt coefficient column and
+    on the device. Per inner iteration only the Gram-Schmidt coefficient column and
     the basis-vector norm are pulled to the host (two small transfers), so
     the hot loop is dominated by the operator applications.
 
@@ -308,11 +308,10 @@ def refined_fgmres_device(
     ``history`` (optional list): receives one dict per refinement round —
     ``{"round", "residual", "inner_tier"}`` with the f64 outer residual at
     the round start and the precision tier the inner Krylov solve ran at
-    ("f32" or "df64") — the stall/escalation telemetry VERDICT r3 asks the
-    bench to capture.
+    ("f32" or "f64") — the stall/escalation telemetry the bench captures.
 
-    TPUs emulate f64 at roughly an order of magnitude over f32, so the inner
-    Krylov iterations run with the float32 operator ``a_f32`` (whose ~1e-6
+    The inner Krylov iterations run with the cheaper float32 operator
+    ``a_f32`` (whose ~1e-6
     relative error caps what one inner solve can achieve), while the OUTER
     loop computes exact f64 residuals with ``a_f64`` and re-solves for the
     correction — classical iterative refinement. Stopping is measured on the
@@ -341,10 +340,9 @@ def refined_fgmres_device(
     # poly-orthogonal complement decays fast) the f32 operator noise gets
     # amplified through the near-singular modes: each round solves
     # A dx = (noise) whose true solution has a HUGE norm, and the iterate
-    # diverges geometrically (measured x17/round on v5e). When a round
-    # fails to contract, escalate the inner operator to the f64-grade
-    # matvec (the df64 tier, ~3.5x an f32 matvec); if it still fails to
-    # contract, return the best iterate seen.
+    # diverges geometrically. When a round fails to contract, escalate the
+    # inner operator to the f64 matvec; if it still fails to contract,
+    # return the best iterate seen.
     inner_op = a_f32
     escalated = False
     prev_res = np.inf
@@ -372,7 +370,7 @@ def refined_fgmres_device(
                 r = b - a_f64(x)
                 res = best_res
             else:
-                break  # not contracting even with the f64-grade inner
+                break  # not contracting even with the f64 inner
         prev_res = res
 
         # inner relative tolerance: enough to finish if possible, else the
@@ -385,7 +383,7 @@ def refined_fgmres_device(
         event = {
             "round": _refine,
             "residual": float(f"{res:.3e}"),
-            "inner_tier": "df64" if escalated else "f32",
+            "inner_tier": "f64" if escalated else "f32",
         }
         if history is not None:
             history.append(event)

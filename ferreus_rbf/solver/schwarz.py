@@ -9,7 +9,7 @@ corrections are orthogonalised against the global thin-Q polynomial basis
 so the P^T lambda = 0 constraint is preserved.
 
 Device-resident: residuals, corrections, the batched leaf Cholesky solves
-and the thin-Q orthogonalisation all stay in HBM; only the small coarse
+and the thin-Q orthogonalisation all stay on the device; only the small coarse
 domain crosses to the host for its direct solve.
 """
 

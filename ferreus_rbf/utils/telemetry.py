@@ -2,7 +2,7 @@
 
 The reference reports coarse solve timing through its progress sink
 (``rbf.rs:325,390-409``) and streams per-iteration residuals; this module
-adds the TPU-side equivalents recommended in SURVEY.md section 5.1: named
+adds the device-side equivalents recommended in SURVEY.md section 5.1: named
 stage timers that accumulate into a report, and an optional
 ``jax.profiler`` trace context for XLA-level inspection.
 
@@ -87,8 +87,7 @@ def record_event(name: str, payload: dict) -> None:
 
     Used by the solvers for stall/escalation telemetry (which precision tier
     each refinement round ran, the f64 outer residual at the round start)
-    and by the fit path for the one-M-step preconditioner diagnostic —
-    VERDICT r3 items 2 and 8."""
+    and by the fit path for the one-M-step preconditioner diagnostic."""
     tracer = _GLOBAL_TRACER
     if tracer is not None:
         tracer.events.append({"event": name, **payload})
@@ -145,19 +144,11 @@ def compiled_program_counts() -> dict:
     the number of XLA compilations the fit triggered in this process.
     """
     from ..ops.fmm import api as fmm_api
-    from ..ops.fmm import p2p_pallas
 
     counts = {}
-    for mod, names in (
-        (fmm_api, ("_upward", "_downward", "_leaf_all", "_matvec_fused")),
-        (p2p_pallas, ("p2p_rows", "p2p_leaf_pairs", "p2p_leaf_pairs_df64")),
-    ):
-        for name in names:
-            fn = getattr(mod, name, None)
-            size = getattr(fn, "_cache_size", None)
-            if callable(size):
-                try:
-                    counts[name] = int(size())
-                except Exception:
-                    pass
+    for name in ("_upward", "_downward", "_leaf_all", "_matvec_fused",
+                 "_matvec_fused_sharded"):
+        size = getattr(getattr(fmm_api, name), "_cache_size", None)
+        if callable(size):
+            counts[name] = int(size())
     return counts

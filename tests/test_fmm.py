@@ -325,120 +325,9 @@ def test_point_outside_tree_error():
     assert exc.value.point_index == 1
 
 
-def test_pallas_near_field_matches_scan():
-    """The fused Pallas P2P/M2P kernel (interpret mode on CPU) must agree
-    with the XLA row-chunk scan through the full fused f32 matvec."""
-    import functools
-
-    import jax
-    import jax.numpy as jnp
-
-    import ferreus_rbf.ops.fmm.p2p_pallas as pp
-    from ferreus_rbf.ops.fmm import api as fmm_api
-
-    orig = pp.p2p_rows
-    orig_pairs = pp.p2p_leaf_pairs
-    orig_slab = pp.p2p_leaf_slab
-    pp.p2p_rows = functools.partial(
-        jax.jit(orig.__wrapped__, static_argnames=("kparams", "interpret")),
-        interpret=True,
-    )
-    pp.p2p_leaf_pairs = functools.partial(
-        jax.jit(orig_pairs.__wrapped__, static_argnames=("kparams", "interpret")),
-        interpret=True,
-    )
-    pp.p2p_leaf_slab = functools.partial(
-        jax.jit(orig_slab.__wrapped__, static_argnames=("kparams", "interpret")),
-        interpret=True,
-    )
-    try:
-        rng = np.random.default_rng(7)
-        pts = rng.random((2500, 3))
-        kp = KernelParams(KernelType.Spheroidal5Rbf, base_range=1.0, total_sill=0.7)
-        tree = fmm_api.FmmTree(pts, 4, kp, adaptive_tree=True, sparse=True)
-        tree.prepare_targets(pts, "src")
-        n_pad = tree._target_cache["src"]["n_pad"]
-        w = jnp.asarray(rng.standard_normal((n_pad, 2)))
-        tree._use_pallas = False
-        v_scan = np.asarray(tree.evaluate_device(w, "src", precision="f32"))
-        tree._use_pallas = True
-        v_pal = np.asarray(tree.evaluate_device(w, "src", precision="f32"))
-    finally:
-        pp.p2p_rows = orig
-        pp.p2p_leaf_pairs = orig_pairs
-        pp.p2p_leaf_slab = orig_slab
-    err = np.max(np.abs(v_pal - v_scan)) / np.max(np.abs(v_scan))
-    assert err < 1e-5, err
-
-
-def test_pallas_m2p_tiles_match_scan():
-    """Adaptive trees with non-empty w-lists run M2P through the cell-tile
-    Pallas kernels (interpret mode on CPU); results must agree with the XLA
-    node-table scan in f32, and reach df64 accuracy in the f64-grade tier."""
-    import functools
-
-    import jax
-    import jax.numpy as jnp
-
-    import ferreus_rbf.ops.fmm.p2p_pallas as pp
-    from ferreus_rbf.ops.fmm import api as fmm_api
-
-    rng = np.random.default_rng(3)
-    # strongly clustered: dense blob + sparse background -> deep adaptive
-    # tree whose frontier cells land on target leaves' w-lists
-    blob = rng.normal(scale=0.02, size=(2000, 3)) + 0.25
-    bg = rng.random((500, 3))
-    pts = np.clip(np.concatenate([blob, bg]), 0, 1)
-    # TPS: no sqrt in phi(r^2), so the df64 check is free of the ~1e-8
-    # interpret-mode sqrt-chain artifact (see the df64 test below) and can
-    # assert true df64 accuracy
-    kp = KernelParams(KernelType.ThinPlateSplineRbf)
-    params = FmmParams(interpolation_order=4, max_points_per_cell=64,
-                       compression_type=FmmCompressionType.ACA, epsilon=1e-4)
-    tree = FmmTree(pts, 4, kp, adaptive_tree=True, sparse=True, params=params)
-    tree.prepare_targets(pts, "src")
-    binned = tree._target_cache["src"]
-    assert tree._m2p_nw > 0 and binned["wtab"] is not None  # the point of the test
-    n_pad = binned["n_pad"]
-    w = jnp.asarray(rng.standard_normal((n_pad, 2)))
-
-    patches = {
-        "p2p_rows": ("kparams", "interpret"),
-        "p2p_leaf_pairs": ("kparams", "interpret"),
-        "p2p_leaf_slab": ("kparams", "interpret"),
-        "p2p_leaf_fused": ("kparams", "interpret"),
-        "p2p_leaf_pairs_df64": ("kparams", "nsl", "keep", "interpret"),
-        "p2p_pairlist_df64": ("kparams", "nsl", "keep", "interpret"),
-    }
-    orig = {name: getattr(pp, name) for name in patches}
-    for name, statics in patches.items():
-        setattr(pp, name, functools.partial(
-            jax.jit(orig[name].__wrapped__, static_argnames=statics),
-            interpret=True,
-        ))
-    try:
-        tree._use_pallas = False
-        v_scan_f32 = np.asarray(tree.evaluate_device(w, "src", precision="f32"))
-        v_f64 = np.asarray(tree.evaluate_device(w, "src", precision="f64"))
-        tree._use_pallas = True
-        v_pal_f32 = np.asarray(tree.evaluate_device(w, "src", precision="f32"))
-        v_pal_df = np.asarray(tree.evaluate_device(w, "src", precision="df64"))
-    finally:
-        for name, fn in orig.items():
-            setattr(pp, name, fn)
-    err32 = np.max(np.abs(v_pal_f32 - v_scan_f32)) / np.max(np.abs(v_scan_f32))
-    assert err32 < 1e-5, err32
-    errdf = np.max(np.abs(v_pal_df - v_f64)) / np.max(np.abs(v_f64))
-    # measured 2.5e-11 at the default keep=5 dial (round 4; the throughput
-    # tier, still 3 decades under the 1e-8 north star); keep=6 restores
-    # ~1e-12 end-to-end and <1e-15 at the kernel level
-    # (scripts/p2p_df64_bench.py asserts both)
-    assert errdf < 1e-10, errdf
-
-
 def test_eval_chunk_size_changes_chunking_not_values():
     """FmmParams.eval_chunk_size scales the leaf-pass scan chunk budgets
-    (VERDICT r1: the knob must be wired, not decorative). Chunking splits
+    (the knob must be wired, not decorative). Chunking splits
     over target rows only, so per-row reduction order — and the result —
     is unchanged."""
     rng = np.random.default_rng(5)
@@ -460,85 +349,6 @@ def test_eval_chunk_size_changes_chunking_not_values():
     np.testing.assert_allclose(results[0], results[1], rtol=1e-13, atol=1e-13)
 
 
-def test_pallas_df64_near_field_matches_f64(monkeypatch):
-    """The df64 Pallas near field (interpret mode on CPU) must reproduce
-    the true-f64 matvec to df64 accuracy through the full fused path."""
-    import functools
-
-    import jax
-    import jax.numpy as jnp
-
-    import ferreus_rbf.ops.fmm.p2p_pallas as pp
-    from ferreus_rbf.ops.fmm import api as fmm_api
-
-    for kname in ("p2p_leaf_pairs_df64", "p2p_pairlist_df64"):
-        monkeypatch.setattr(
-            pp, kname,
-            functools.partial(
-                jax.jit(getattr(pp, kname).__wrapped__,
-                        static_argnames=("kparams", "nsl", "keep", "interpret")),
-                interpret=True,
-            ),
-        )
-    rng = np.random.default_rng(17)
-    pts = rng.random((2500, 3))
-    kp = KernelParams(KernelType.CubicRbf)
-    tree = fmm_api.FmmTree(pts, 4, kp, adaptive_tree=True, sparse=True)
-    tree.prepare_targets(pts, "src")
-    n_pad = tree._target_cache["src"]["n_pad"]
-    w = jnp.asarray(rng.standard_normal((n_pad, 2)))
-    v_f64 = np.asarray(tree.evaluate_device(w, "src", precision="f64"))
-    monkeypatch.setattr(tree, "_use_pallas", True)
-    v_df = np.asarray(tree.evaluate_device(w, "src", precision="df64"))
-    err = np.max(np.abs(v_df - v_f64)) / np.max(np.abs(v_f64))
-    # the pallas INTERPRETER shows a ~6e-9 artifact for sqrt-chain kernels
-    # that neither the plain-jnp replication of the kernel body nor the
-    # real-TPU run exhibits (hardware: 1.6e-13 vs the CPU f64 oracle,
-    # scripts/df64_matvec_check.py); keep the interpret-mode gate at 1e-8
-    assert err < 1e-8, err
-
-
-def test_pallas_df64_gradients_match_f64(monkeypatch):
-    """The df64 gradient tier (pair-list Pallas kernels + ozaki L2P, in
-    interpret mode on CPU) must reproduce the f64-scan gradients to
-    df64 accuracy (VERDICT r2 item 5)."""
-    import functools
-
-    import jax
-    import jax.numpy as jnp
-
-    import ferreus_rbf.ops.fmm.p2p_pallas as pp
-    from ferreus_rbf.ops.fmm import api as fmm_api
-
-    monkeypatch.setattr(
-        pp, "p2p_pairlist_df64_grad",
-        functools.partial(
-            jax.jit(pp.p2p_pairlist_df64_grad.__wrapped__,
-                    static_argnames=("kparams", "nsl", "keep", "interpret")),
-            interpret=True,
-        ),
-    )
-    rng = np.random.default_rng(23)
-    pts = rng.random((2000, 3))
-    kp = KernelParams(KernelType.Spheroidal5Rbf, base_range=1.2, total_sill=0.9)
-    tree = fmm_api.FmmTree(pts, 4, kp, adaptive_tree=True, sparse=True)
-    w = rng.standard_normal((2000, 2))
-    tree.set_weights(w)
-    targets = rng.random((400, 3))
-    v64, g64 = tree.evaluate_with_gradients(w, targets)
-    monkeypatch.setattr(tree, "_use_pallas", True)
-    monkeypatch.setattr(tree, "_f64_prec", "df64")
-    tree.set_weights(w)  # re-run upward in the df64 tier
-    vdf, gdf = tree.evaluate_with_gradients(w, targets, reuse_key="t2")
-    ve = np.max(np.abs(vdf - v64)) / np.max(np.abs(v64))
-    ge = np.max(np.abs(gdf - g64)) / np.max(np.abs(g64))
-    # 1e-7 interpret-mode gate (the spheroidal sqrt/recip chains show a
-    # ~3e-8 Pallas-INTERPRETER artifact, cf. the 6e-9 note above); the
-    # real-TPU run lands ~1e-13 (scripts/df64_grad_check.py)
-    assert ve < 1e-7, ve
-    assert ge < 1e-7, ge
-
-
 def test_f32_matvec_with_utm_scale_offsets():
     """Real-world coordinates (UTM northings ~7.7e6 with metre-scale
     extents) must not lose precision in the f32 inner-matvec path: device
@@ -557,175 +367,7 @@ def test_f32_matvec_with_utm_scale_offsets():
     v64 = np.asarray(tree.evaluate_device(jnp.asarray(w), "src", precision="f64"))
     v32 = np.asarray(tree.evaluate_device(jnp.asarray(w), "src", precision="f32"))
     rel = np.max(np.abs(v32 - v64)) / np.max(np.abs(v64))
-    # raw-coordinate f32 casts give ~1e-3 here; centred geometry ~1e-7 on
-    # CPU and ~8e-6 on TPU (the f32 tier's bf16x3 near-field dot + f32
-    # bucket accumulation — still f32-grade, and the refined solver's df64
-    # residuals absorb it: fit convergence is unchanged)
+    # raw-coordinate f32 casts give ~1e-3 here; centred geometry keeps the
+    # f32 tier at f32 grade (~1e-7 here; f32 bucket accumulation at scale
+    # adds more), which the refined solver's f64 residuals absorb
     assert rel < 2e-5, rel
-
-
-def test_far_keep_policy_mapping():
-    """The f64-grade tier's epsilon-aware far-field dial (round 4).
-
-    Expansion-mediated passes carry O(epsilon) truncation (the reference's
-    f64 arithmetic does too — ``bbfmm.rs`` only guarantees the truncated
-    value); the policy picks the ozaki keep whose rounding (~2^-8k) stays
-    <= 0.01 * epsilon, floored at 3, capped at the near-field dial."""
-    from ferreus_rbf.ops.fmm import api as fmm_api
-
-    if fmm_api._DF64_KEEP != 5:
-        pytest.skip("mapping assertions assume the default keep=5 dial")
-    assert fmm_api._f64_grade_prec(1e-4) == "df64f3"
-    assert fmm_api._f64_grade_prec(1e-5) == "df64f3"
-    assert fmm_api._f64_grade_prec(1e-7) == "df64f4"
-    assert fmm_api._f64_grade_prec(1e-9) == "df64"
-    assert fmm_api._f64_grade_prec(1e-11) == "df64"
-    assert fmm_api._far_keep_for("df64") == fmm_api._DF64_KEEP
-    assert fmm_api._far_keep_for("df64f3") == 3
-    assert fmm_api._far_keep_for("df64f4") == 4
-
-
-def test_far_keep_policy_end_to_end_error(monkeypatch):
-    """The reduced far-field dial must be invisible next to truncation:
-    FMM(df64fK) vs the DENSE f64 oracle stays within a small factor of
-    FMM(df64 full) vs the same oracle (both are truncation-bound)."""
-    import functools
-
-    import jax
-    import jax.numpy as jnp
-
-    import ferreus_rbf.ops.fmm.p2p_pallas as pp
-    from ferreus_rbf.ops.dense import get_a_matrix
-    from ferreus_rbf.ops.fmm import api as fmm_api
-
-    for kname in ("p2p_leaf_pairs_df64", "p2p_pairlist_df64"):
-        monkeypatch.setattr(
-            pp, kname,
-            functools.partial(
-                jax.jit(getattr(pp, kname).__wrapped__,
-                        static_argnames=("kparams", "nsl", "keep", "interpret")),
-                interpret=True,
-            ),
-        )
-    rng = np.random.default_rng(29)
-    pts = rng.random((2500, 3))
-    kp = KernelParams(KernelType.LinearRbf)
-    params = FmmParams(interpolation_order=4, max_points_per_cell=64,
-                       compression_type=FmmCompressionType.ACA, epsilon=1e-4)
-    tree = fmm_api.FmmTree(pts, 4, kp, adaptive_tree=True, sparse=True,
-                           params=params)
-    tree.prepare_targets(pts, "src")
-    n_pad = tree._target_cache["src"]["n_pad"]
-    w = np.zeros((n_pad, 2))
-    w[:2500] = rng.standard_normal((2500, 2))
-    dense = np.asarray(get_a_matrix(pts, pts, kp, xp=np)) @ w[:2500]
-    scale = np.max(np.abs(dense))
-    monkeypatch.setattr(tree, "_use_pallas", True)
-    errs = {}
-    for prec in ("df64", fmm_api._f64_grade_prec(params.epsilon)):
-        v = np.asarray(tree.evaluate_device(jnp.asarray(w), "src",
-                                            precision=prec))[:2500]
-        errs[prec] = np.max(np.abs(v - dense)) / scale
-    assert "df64f3" in errs, errs  # the policy must actually reduce the dial
-    # both truncation-bound; the reduced dial may add at most ~0.01 * eps
-    assert errs["df64f3"] <= 2.0 * errs["df64"] + 0.01 * params.epsilon, errs
-
-
-def test_zall_fallback_bitwise_equal(monkeypatch):
-    """Levels whose df64 M2L rank-precompression table exceeds the budget
-    fall back to a slot-chunked two-step split-dot path (round-5 at-scale
-    memory fix). Per output element both paths run the identical exact
-    contractions, so the full matvec must be BITWISE equal."""
-    import jax
-    import jax.numpy as jnp
-
-    from ferreus_rbf.ops.fmm import api as fmm_api
-
-    rng = np.random.default_rng(31)
-    pts = rng.random((4000, 3))
-    kp = KernelParams(KernelType.LinearRbf)
-    params = FmmParams(interpolation_order=4, max_points_per_cell=64,
-                       compression_type=FmmCompressionType.ACA, epsilon=1e-4)
-    tree = fmm_api.FmmTree(pts, 4, kp, adaptive_tree=True, sparse=True,
-                           params=params)
-    tree.prepare_targets(pts, "src")
-    w = jnp.asarray(rng.standard_normal((4000, 2)))
-    ref = np.asarray(tree.evaluate_device(w, "src", precision="df64"))
-
-    fmm_api._zall_budget_bytes.cache_clear()
-    monkeypatch.setenv("FERREUS_RBF_ZALL_BYTES", "0")
-    jax.clear_caches()  # the gate is read at trace time
-    try:
-        got = np.asarray(tree.evaluate_device(w, "src", precision="df64"))
-    finally:
-        fmm_api._zall_budget_bytes.cache_clear()
-        monkeypatch.delenv("FERREUS_RBF_ZALL_BYTES")
-        jax.clear_caches()
-    assert np.array_equal(ref, got)
-
-
-def test_m2p_node_tile_gate_equivalence(monkeypatch):
-    """When the node-tile budget gates the Pallas M2P tiles off (huge
-    trees), the w-list contribution must reroute through the scan tables
-    with on-the-fly virtual nodes and agree with the tile route."""
-    import functools
-
-    import jax
-    import jax.numpy as jnp
-
-    import ferreus_rbf.ops.fmm.p2p_pallas as pp
-    from ferreus_rbf.ops.fmm import api as fmm_api
-
-    import inspect
-
-    for kname in ("p2p_leaf_pairs", "p2p_leaf_fused", "p2p_leaf_slab",
-                  "p2p_rows", "p2p_leaf_pairs_df64", "p2p_pairlist_df64",
-                  "p2p_pairlist_df64_grad"):
-        fn = getattr(pp, kname, None)
-        if fn is None or not hasattr(fn, "__wrapped__"):
-            continue
-        sig = set(inspect.signature(fn.__wrapped__).parameters)
-        statics = tuple(n for n in ("kparams", "nsl", "keep", "interpret")
-                        if n in sig)
-        monkeypatch.setattr(
-            pp, kname,
-            functools.partial(
-                jax.jit(fn.__wrapped__, static_argnames=statics),
-                interpret=True,
-            ),
-        )
-    rng = np.random.default_rng(37)
-    # strongly non-uniform density so the adaptive tree produces w/x lists
-    pts = np.concatenate([
-        rng.random((2400, 3)) * 0.12,            # dense cluster
-        rng.random((600, 3)),                     # sparse background
-    ])
-    kp = KernelParams(KernelType.LinearRbf)
-    params = FmmParams(interpolation_order=4, max_points_per_cell=64,
-                       compression_type=FmmCompressionType.ACA, epsilon=1e-4)
-
-    def run():
-        tree = fmm_api.FmmTree(pts, 4, kp, adaptive_tree=True, sparse=True,
-                               params=params)
-        assert tree._w_sorted.size, "fixture must exercise the w-list"
-        monkeypatch.setattr(tree, "_use_pallas", True)
-        tree.prepare_targets(pts, "src")
-        w = jnp.asarray(rng.standard_normal((3000, 2)))
-        return (tree._m2p_tiles_gated,
-                np.asarray(tree.evaluate_device(w, "src", precision="f32")))
-
-    rng = np.random.default_rng(37)  # same weights both runs
-    gated0, ref = run()
-    assert not gated0
-    monkeypatch.setenv("FERREUS_RBF_NODETILE_BYTES", "0")
-    jax.clear_caches()
-    rng = np.random.default_rng(37)
-    try:
-        gated1, got = run()
-    finally:
-        monkeypatch.delenv("FERREUS_RBF_NODETILE_BYTES")
-        jax.clear_caches()
-    assert gated1
-    scale = np.max(np.abs(ref))
-    assert np.max(np.abs(got - ref)) / scale < 1e-5, (
-        np.max(np.abs(got - ref)) / scale)

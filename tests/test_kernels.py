@@ -105,3 +105,27 @@ def test_kernel_params_validation():
         KernelParams(kernel_type=KernelType.LinearRbf, base_range=0.0)
     with pytest.raises(ValueError):
         KernelParams(kernel_type=KernelType.LinearRbf, base_range=1.0, total_sill=2.0)
+
+
+@pytest.mark.parametrize("kt", ALL_KERNELS)
+def test_device_phi_at_tiny_r2_matches_numpy(kt):
+    """f64 phi and gradient factor on the device path agree with the numpy
+    twin down to r^2 = 1e-40: plain f64 sqrt / rsqrt / division, with no
+    clamp of tiny distances."""
+    import jax.numpy as jnp
+
+    p = params_for(kt)
+    r2 = np.concatenate([np.logspace(-40, -20, 21), [1e-16, 1e-8, 0.25, 4.0]])
+    dev = make_kernel(p)
+    host = make_kernel(p, xp=np)
+    for fn_dev, fn_host in ((dev.phi_r2, host.phi_r2),
+                            (dev.grad_scale_r2, host.grad_scale_r2)):
+        got = np.asarray(fn_dev(jnp.asarray(r2)))
+        want = fn_host(r2)
+        assert got.dtype == np.float64
+        np.testing.assert_allclose(got, want, rtol=1e-14, atol=0.0)
+    if kt == KernelType.LinearRbf:
+        # phi(r) = -r exactly where the old f32-seeded sqrt clamped
+        np.testing.assert_allclose(
+            np.asarray(dev.phi_r2(jnp.asarray(r2[:21]))), -np.sqrt(r2[:21]),
+            rtol=1e-15)

@@ -148,7 +148,7 @@ def _grad_from_f(f, eps=1e-5):
 
 
 # ---------------------------------------------------- adversarial closure
-# VERDICT r1 item 5: cases where the earcut+perimeter-completion closure
+# Cases where the earcut+perimeter-completion closure
 # could diverge from the reference's per-face CDT + inside/outside flood
 # (``boundary_closure.rs:39-48,642``): nested loops on one face, caps
 # meeting at box edges/corners, many exit faces, multiple components.

@@ -111,7 +111,7 @@ def test_device_fgmres_matches_host_mgs_iterations():
 def test_refined_fgmres_escalates_on_stiff_system():
     """Iterative refinement contracts only while kappa(A) * eps_inner < 1.
     On a kappa ~ 3e8 system an f32 inner operator amplifies its own noise
-    through the near-singular modes (the 2D-TPS-on-TPU failure mode);
+    through the near-singular modes (the 2D-TPS failure mode);
     the refined solver must detect the non-contraction, escalate the
     inner operator to a_f64, and still converge."""
     import jax.numpy as jnp
@@ -465,7 +465,7 @@ def test_host_refactor_indefinite_block_falls_back_spd():
 
 
 def test_stall_exit_then_escalation_telemetry():
-    """Pins the round-3 stall machinery end to end (VERDICT r3 item 7):
+    """Pins the stall machinery end to end:
     an inner operator with a deterministic accuracy floor must (a) trip
     ``stall_cycle_factor`` inside the f32 rounds instead of grinding all
     20 restarts at the floor (the 3M-point failure mode: ~100 iterations
@@ -523,18 +523,18 @@ def test_stall_exit_then_escalation_telemetry():
     assert res < 1e-10, res
     # (a) the floored rounds tripped the stall exit (no 20-restart grind)
     assert any(e["event"] == "stall_exit" for e in events), events
-    # (b) rounds escalated f32 -> df64 and the escalation stuck
+    # (b) rounds escalated f32 -> f64 and the escalation stuck
     tiers = [h["inner_tier"] for h in history]
     assert tiers[0] == "f32", tiers
-    assert "df64" in tiers, tiers
-    assert tiers[tiers.index("df64"):] == ["df64"] * tiers.count("df64"), tiers
+    assert "f64" in tiers, tiers
+    assert tiers[tiers.index("f64"):] == ["f64"] * tiers.count("f64"), tiers
     # (c) the final solve_done event reports convergence at tolerance
     done = [e for e in events if e["event"] == "solve_done"]
     assert done and done[-1]["converged"] is True, done
 
 
 def test_ddm_recompute_matches_stored_factors(monkeypatch):
-    """Storage-free Schwarz (VERDICT r3 item 9): with the memory budget
+    """Storage-free Schwarz: with the memory budget
     forced tiny, the fine level re-assembles + re-factors per application
     (zero resident factor bytes) and the fit still converges to the same
     tolerance as the stored-factor fit."""
