@@ -125,7 +125,8 @@ def test_device_phi_at_tiny_r2_matches_numpy(kt):
         assert got.dtype == np.float64
         np.testing.assert_allclose(got, want, rtol=1e-14, atol=0.0)
     if kt == KernelType.LinearRbf:
-        # phi(r) = -r exactly where the old f32-seeded sqrt clamped
+        # phi(r) = -r to the last bit for r^2 down to 1e-40, below the
+        # smallest normal f32
         np.testing.assert_allclose(
             np.asarray(dev.phi_r2(jnp.asarray(r2[:21]))), -np.sqrt(r2[:21]),
             rtol=1e-15)

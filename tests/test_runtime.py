@@ -52,8 +52,8 @@ def test_evaluate_device_rejects_unknown_precision():
     tree = FmmTree(pts, 3, KernelParams(KernelType.LinearRbf))
     tree.prepare_targets(pts, "src")
     w = jnp.asarray(rng.standard_normal((300, 1)))
-    # only the f32 and f64 tiers exist; the removed double-float tier's
-    # name and any other string raise instead of picking a tier
+    # only the f32 and f64 tiers exist; any other name raises instead of
+    # picking a tier
     for bad in ("double-float", "f16", "bf16"):
         with pytest.raises(ValueError, match="precision"):
             tree.evaluate_device(w, "src", precision=bad)
